@@ -1,0 +1,109 @@
+"""Shared building blocks (counterpart of ``lss_carla_tpu/models/layers.py``).
+
+NCHW, torch idiom. Names follow the reference state dict: ``Up`` holds its
+convs in ``conv`` (``conv.0``/``conv.1``/``conv.3``/``conv.4``), and
+``ConvBNReLU`` is a ``Sequential`` that splices into a parent
+``Sequential`` (``*ConvBNReLU(...)``) so the parent's indices stay the
+reference's. Convolutions use symmetric ``k//2`` padding; BN is torch's
+default (eps 1e-5, momentum 0.1).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from lss_carla_torch.ops.image import upsample_align_corners
+
+# channel dropout: zeroes whole feature maps in training, identity in eval
+Dropout2d = nn.Dropout2d
+
+
+class ConvBNReLU(nn.Sequential):
+    """conv(kxk, no bias, padding k//2) + BN + ReLU."""
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
+        super().__init__(
+            nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                      bias=False),
+            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+            nn.ReLU(inplace=True))
+
+
+class Upsample(nn.Module):
+    """Bilinear align_corners=True upsample by an integer factor."""
+
+    def __init__(self, scale: int):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x):
+        return upsample_align_corners(x, self.scale)
+
+
+class Up(nn.Module):
+    """Upsample-and-fuse block (reference ``src/models.py:15-34``):
+    upsample x1 by ``scale``, concat [x2, x1] on channels (skip first),
+    then two ConvBNReLUs to ``cout``."""
+
+    def __init__(self, cin: int, cout: int, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+        self.conv = nn.Sequential(*ConvBNReLU(cin, cout),
+                                  *ConvBNReLU(cout, cout))
+
+    def forward(self, x1, x2):
+        x1 = upsample_align_corners(x1, self.scale)
+        return self.conv(torch.cat([x2, x1], dim=1))
+
+
+class BasicBlock(nn.Module):
+    """torchvision resnet BasicBlock; ``init_weights`` zeroes bn2's scale
+    (zero-init residual, reference models.py:96)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = nn.BatchNorm2d(cout)
+        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
+        self.bn2 = nn.BatchNorm2d(cout)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
+                nn.BatchNorm2d(cout))
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        y = self.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return self.relu(y + identity)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator) -> None:
+    """Random initialisation drawn from ``generator`` only.
+
+    Bias-free convs: kaiming normal, fan_out (the JAX package's
+    ``kaiming_out``). Convs with a bias (SE, depthnet, head): lecun normal
+    (flax's default) and zero bias. BN: scale 1, shift 0, except the
+    zero-init residual ``BasicBlock.bn2``."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.Conv2d):
+                if m.bias is None:
+                    nn.init.kaiming_normal_(m.weight, mode="fan_out",
+                                            nonlinearity="relu",
+                                            generator=generator)
+                else:
+                    fan_in = m.weight[0].numel()
+                    m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.reset_running_stats()
+        for m in module.modules():
+            if isinstance(m, BasicBlock):
+                m.bn2.weight.zero_()

@@ -26,35 +26,73 @@ exits non-zero without the final result line:
 5. forward latency at bsz 1 and ms per sample at bsz 8, with the card's
    name and power limit;
 6. where the device time goes at bsz 8 and bsz 1, TF32 off and on
-   (torch.profiler): a reading for PERF.md, not a check.
+   (torch.profiler): a reading for PERF.md, not a check;
+7. the depthwise-conv + BN-moments kernel against its plain version
+   (``dw_conv_stats_reference``) at the 16 depthwise shapes of the B0
+   trunk at N 24 (bsz 4 x 6 cameras) in f32, and blocks 0, 1 and 11 in
+   bf16: y, sum and sum of squares within a summation-order bound, and dx,
+   dw through the autograd Function against the plain version's autograd.
+   The device time (torch.profiler) of the kernel, the plain version,
+   cuDNN's depthwise conv alone (the nearest library call) and cuDNN's
+   conv plus a ``var_mean`` pass stand beside the byte bound, and the
+   wrapper's back-to-back call time (CUDA events) beside them;
+8. training at full width through the port's own ``train()``: B0 at the
+   default config on a synthetic SimBEV fixture (224 x 480 sources), bsz 4,
+   ``fused_dw``, 20 steps with a validation and a checkpoint every 10; the
+   kernels' launch counters, zeroed just before, must show 16 depthwise
+   launches per train-mode forward and the splat; every logged loss is
+   finite; the checkpoints exist, a resume from step 10 continues at 10,
+   and ``model_best.pt`` is exported and answers one HTTP request;
+9. one train step on the card (``fused_dw``: the kernel) against the same
+   step on the CPU (the plain version), B0 at bsz 2, dropout and
+   drop-connect 0, TF32 off: loss, gradients, the parameters after Adam
+   and every BN's running stats;
+10. train-step times (``train_step_ms_bsz8`` and bsz 4, ``fused_dw`` off
+    and on, cuDNN TF32 off and on), the device idle share of phase 8's
+    loop, and a torch.profiler breakdown of one bsz-4 train step with
+    ``fused_dw`` off and on.
 
 The line before the last is the kernels' JSON (name, route, source, TPU
-kernel replaced, launches on the main path, error, times, bound); the last
-line is ``{"ok": true, "device": {...}}``. Without a GPU, or without the
-package beside it, the script fails before printing either.
+kernel replaced, launches on the main paths, error, times, bound); the
+last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
+the package beside it, the script fails before printing either.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
+import math
+import os
 import subprocess
 import sys
 import tempfile
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lss_carla_torch.configs import DataAugConf, GridConf
+from lss_carla_torch.data.fixtures import generate_fixture
+from lss_carla_torch.data.loader import compile_data
+from lss_carla_torch.models.efficientnet import MBConvBlock, block_plan
 from lss_carla_torch.models.lss import compile_model
-from lss_carla_torch.ops import splat_cuda
+from lss_carla_torch.ops import mbconv_cuda, splat_cuda
+from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
+                                        same_pad)
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
 from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
+from lss_carla_torch.training.loop import train
+from lss_carla_torch.training.state import create_train_state
+from lss_carla_torch.training.step import make_train_step
+from lss_carla_torch.utils.convert import reference_state_dict
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -89,6 +127,37 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(prof):
+    """The profile's device activity (kernels, copies, fills), without the
+    device-side spans of user annotations (e.g. ``Optimizer.step``), which
+    overlap the kernels inside them."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages() if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of all the kernels ``fn`` launches, summed
+    (torch.profiler, over n calls after a warm-up). Unlike ``cuda_ms``
+    it leaves out the host's time to issue each call, which bounds a
+    back-to-back loop of calls shorter than ~0.1 ms. Now and then a
+    profiling window comes back without device activity; it is profiled
+    again, up to three windows in all."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / n
+        if busy > 0:
+            return busy
+    raise RuntimeError("the profiler saw no device time in three windows")
 
 
 def splat_bound(pts, ids, num_slots):
@@ -318,49 +387,452 @@ def phase_serving(tmp, model, rng, device="cuda"):
     return path1, path8, launches, many
 
 
+def _profile(fn, n: int, inference: bool):
+    """(host wall ms per call with the profiler off, profiler over n
+    calls, device busy ms per call, kernels sorted by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()  # warm: a changed TF32 setting picks new algorithms
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    mode = torch.inference_mode() if inference else torch.enable_grad()
+    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                       record_shapes=True) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    return wall_ms, prof, busy_ms, kernels
+
+
+def _share(kernels, needle, n, busy_ms) -> str:
+    ms = sum(e.self_device_time_total for e in kernels if needle in e.key) / 1e3 / n
+    return f"{ms:.4f} ms ({100 * ms / busy_ms:.2f}% of busy)"
+
+
+def _top(prof, kernels, n, k=6) -> str:
+    cuda = torch.autograd.DeviceType.CUDA
+    top_k = " | ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
+                       f" x{e.count // n}" for e in kernels[:k])
+    ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type != cuda and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)
+    top_o = " | ".join(f"{e.key} {str(e.input_shapes)[:80]} "
+                       f"{e.self_device_time_total / 1e3 / n:.3f} ms x{e.count // n}"
+                       for e in ops[:k])
+    return f"top kernels: {top_k}; top ops: {top_o}"
+
+
 def profile_forward(fn, n: int = 5) -> str:
     """Per-forward wall time (host clock, profiler off), device busy time
     and idle share, the splat kernel's share, the kernels that take the
     most device time, and the aten ops (with input shapes) that launch
     them, over ``n`` calls."""
     try:
-        from torch.profiler import ProfilerActivity, profile
-        fn()  # warm: a changed TF32 setting picks new algorithms
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                record_shapes=True) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        cuda = torch.autograd.DeviceType.CUDA
-        rows = prof.key_averages()
-        kernels = sorted((e for e in rows if e.device_type == cuda),
-                         key=lambda e: -e.self_device_time_total)
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        wall_ms, prof, busy_ms, kernels = _profile(fn, n, inference=True)
         if busy_ms <= 0:
             return "not measured (the profiler saw no device time)"
-        splat_ms = sum(e.self_device_time_total for e in kernels
-                       if "splat_kernel" in e.key) / 1e3 / n
-        top_k = " | ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms"
-                           f" x{e.count // n}" for e in kernels[:6])
-        ops = sorted((e for e in prof.key_averages(group_by_input_shape=True)
-                      if e.device_type != cuda and e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-        top_o = " | ".join(f"{e.key} {str(e.input_shapes)[:80]} "
-                           f"{e.self_device_time_total / 1e3 / n:.3f} ms x{e.count // n}"
-                           for e in ops[:6])
         return (f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
                 f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, splat kernel "
-                f"{splat_ms:.4f} ms ({100 * splat_ms / busy_ms:.2f}% of busy); "
-                f"top kernels: {top_k}; top ops: {top_o}")
+                f"{_share(kernels, 'splat_kernel', n, busy_ms)}; "
+                f"{_top(prof, kernels, n)}")
     except Exception as e:  # the profiler is a reading, not a check
         return f"not measured ({type(e).__name__}: {e})"
+
+
+def profile_train_step(fn, n: int, up2_shape) -> tuple:
+    """(device busy ms per step or None, reading): as profile_forward, for
+    a train step, with the depthwise kernel's share and the device time of
+    the ``convolution_backward`` calls on the BEV ``up2`` conv's input
+    ``up2_shape``."""
+    try:
+        wall_ms, prof, busy_ms, kernels = _profile(fn, n, inference=False)
+        if busy_ms <= 0:
+            return None, "not measured (the profiler saw no device time)"
+        up2 = [e for e in prof.key_averages(group_by_input_shape=True)
+               if e.key == "aten::convolution_backward"
+               and list(up2_shape) in [list(s) for s in e.input_shapes if s]]
+        up2_ms = sum(e.device_time_total for e in up2) / 1e3 / n
+        return busy_ms, (
+            f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
+            f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, device activities (kernels, "
+            f"copies, fills) {sum(e.count for e in kernels) / n:.0f} a step, "
+            f"dw_conv_stats kernel "
+            f"{_share(kernels, 'dw_conv_stats_kernel', n, busy_ms)}, splat "
+            f"kernel {_share(kernels, 'splat_kernel', n, busy_ms)}, BEV up2 "
+            f"conv backward (input {tuple(up2_shape)}) {up2_ms:.3f} ms "
+            f"({100 * up2_ms / busy_ms:.2f}% of busy, {sum(e.count for e in up2) // n}"
+            f" calls); {_top(prof, kernels, n, k=8)}")
+    except Exception as e:  # the profiler is a reading, not a check
+        return None, f"not measured ({type(e).__name__}: {e})"
+
+
+# --- phase 7: the depthwise conv + BN moments kernel -------------------
+
+def dw_shapes(N: int = 24, H: int = 64, W: int = 176):
+    """(block, k, s, (N, C, H, W)) of the B0 trunk's 16 depthwise convs,
+    from the stem's output (6 cameras at 128 x 352 -> 64 x 176)."""
+    out = []
+    for i, a in enumerate(block_plan("b0")):
+        out.append((i, a["kernel"], a["stride"],
+                     (N, a["cin"] * a["expand"], H, W)))
+        H, W = -(-H // a["stride"]), -(-W // a["stride"])
+    return out
+
+
+def dw_bound(x, k, s):
+    """(ms, bound_by): x read once, y written once, the weights and the
+    two moment vectors, over the memory rate, against 2 k^2 + 3 f32
+    operations an output over the f32 rate."""
+    N, C, H, W = x.shape
+    outs = N * C * -(-H // s) * -(-W // s)
+    nbytes = (x.numel() + outs) * x.element_size() + C * k * k * 4 + 2 * C * 4
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = outs * (2 * k * k + 3) / F32_FLOPS * 1e3
+    return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def check_dw(name, x, w, s, grads: bool):
+    """The kernel vs its plain version on the card; returns (max |dy|,
+    times).
+
+    Tolerances: both sum each output's k^2 taps in f32 in some order, so
+    they differ by at most 2 k^2 u sum|x w| (u = 2^-24); a bf16 y rounds
+    once more (plus one bf16 ulp, 2^-8 relative). The moments sum the
+    n = N Ho Wo f32 values (squares) in other orders: 2 n u sum|y| (sum
+    y^2). The backward runs the same cuDNN transposes on both sides and
+    differs only through y in the 2 y dsumsq term: 1e-4 of the largest
+    entry of dx and of dw."""
+    k, C = w.shape[-1], x.shape[1]
+    y, s1, s2 = mbconv_cuda.dw_conv_stats_forward(x, w, s)
+    ry, r1, r2 = dw_conv_stats_reference(x, w, s)
+    y32 = F.conv2d(same_pad(x.float(), k, s), w.to(x.dtype).float(),
+                   stride=s, groups=C)
+    absconv = F.conv2d(same_pad(x.float().abs(), k, s),
+                       w.to(x.dtype).float().abs(), stride=s, groups=C)
+    torch.cuda.synchronize()
+    assert y.shape == ry.shape and y.dtype == x.dtype, (name, y.shape, y.dtype)
+    assert torch.isfinite(y).all() and torch.isfinite(s1).all() \
+        and torch.isfinite(s2).all(), f"{name}: non-finite output"
+    u = 2.0 ** -24
+    bound = 2 * k * k * u * absconv + 1e-6
+    if x.dtype == torch.bfloat16:
+        bound = bound + 2.0 ** -8 * ry.float().abs()
+    err = (y.float() - ry.float()).abs()
+    assert (err <= bound).all(), f"{name}: y exceeds the bound by {(err - bound).max().item()}"
+    n = y32.numel() // C
+    e1 = ((s1 - r1).abs() - (2 * n * u * y32.abs().sum((0, 2, 3)) + 1e-6)).max().item()
+    e2 = ((s2 - r2).abs() - (2 * n * u * r2 + 1e-6)).max().item()
+    assert e1 <= 0 and e2 <= 0, f"{name}: moments exceed the bound ({e1}, {e2})"
+    y2, t1, t2 = mbconv_cuda.dw_conv_stats_forward(x, w, s)
+    assert torch.equal(y, y2) and torch.equal(s1, t1) and torch.equal(s2, t2), \
+        f"{name}: not bit-reproducible"
+    rel_s = ((s1 - r1).abs() / r1.abs().clamp(min=1e-6)).max().item()
+    note = f"sum rel err {rel_s:.2e}"
+    if grads:
+        r = torch.randn(y.shape, device=x.device, dtype=torch.float32)
+        got, want = [], []
+        for fn, out in ((dw_conv_stats, got), (dw_conv_stats_reference, want)):
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            ya, sa, ssa = fn(xa, wa, s)
+            ((ya.float() * r).sum() + 0.3 * sa.sum() + 1e-3 * ssa.sum()).backward()
+            out += [xa.grad, wa.grad]
+        for g, ref, what in zip(got, want, ("dx", "dw")):
+            gerr = (g - ref).abs().max().item()
+            scale = ref.abs().max().item()
+            assert gerr <= 1e-4 * scale, f"{name}: {what} off by {gerr} (scale {scale})"
+            note += f", {what} {gerr / scale:.1e} of max"
+    xp, wc = same_pad(x, k, s), w.to(x.dtype)
+    kernel = lambda: mbconv_cuda.dw_conv_stats_forward(x, w, s)  # noqa: E731
+    times = {
+        "ms": device_ms(kernel),
+        "plain_ms": device_ms(lambda: dw_conv_stats_reference(x, w, s)),
+        "library_ms": device_ms(lambda: F.conv2d(xp, wc, stride=s, groups=C)),
+        "conv_var_mean_ms": device_ms(lambda: torch.var_mean(
+            F.conv2d(xp, wc, stride=s, groups=C).float(), dim=(0, 2, 3))),
+        "call_ms": cuda_ms(kernel),
+    }
+    times["bound_ms"], times["bound_by"] = dw_bound(x, k, s)
+    max_err = err.max().item()
+    print(f"dw_conv_stats {name}: max |dy| {max_err:.3e} (within the "
+          f"summation-order bound), {note}; device ms: kernel {times['ms']:.4f}, "
+          f"plain {times['plain_ms']:.4f}, cuDNN conv {times['library_ms']:.4f}, "
+          f"cuDNN conv + var_mean {times['conv_var_mean_ms']:.4f}, "
+          f"{times['bound_by']} bound {times['bound_ms']:.4f}; wrapper call "
+          f"back to back {times['call_ms']:.4f} ms (CUDA events)", flush=True)
+    return max_err, times
+
+
+def phase_dw(gen):
+    """Phase 7. Returns (max |dy| over the f32 shapes, the f32 shapes'
+    summed device times and bound: one train forward's 16 launches)."""
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+             "conv_var_mean_ms": 0.0, "call_ms": 0.0, "bound_ms": 0.0}
+    max_err, by = 0.0, {}
+    for block, k, s, shape in dw_shapes():
+        for dtype in ((torch.float32, torch.bfloat16) if block in (0, 1, 11)
+                      else (torch.float32,)):
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+            w = 0.3 * torch.randn(shape[1], 1, k, k, generator=gen, device="cuda")
+            name = (f"block {block} k{k} s{s} {tuple(shape)} "
+                    f"{'f32' if dtype == torch.float32 else 'bf16'}")
+            err, t = check_dw(name, x, w, s, grads=dtype == torch.float32)
+            if dtype == torch.float32:
+                max_err = max(max_err, err)
+                for key in total:
+                    total[key] += t[key]
+                by[t["bound_by"]] = by.get(t["bound_by"], 0) + 1
+    bound_by = max(by, key=by.get)
+    print(f"dw_conv_stats, the 16 f32 launches of one bsz-4 train forward, "
+          f"device ms: kernel {total['ms']:.4f}, plain {total['plain_ms']:.4f}, "
+          f"cuDNN conv {total['library_ms']:.4f}, cuDNN conv + var_mean "
+          f"{total['conv_var_mean_ms']:.4f}, bound {total['bound_ms']:.4f} "
+          f"({bound_by}; the kernel at {100 * total['bound_ms'] / total['ms']:.1f}% "
+          f"of it); wrapper calls back to back {total['call_ms']:.4f} ms", flush=True)
+    total.pop("conv_var_mean_ms")
+    total.pop("call_ms")
+    return max_err, {**total, "bound_by": bound_by}
+
+
+# --- phases 8-10: training ---------------------------------------------
+
+TRAIN_STEPS = 20
+DW_PER_FORWARD = len(block_plan("b0"))  # one depthwise launch a block: 16
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_training(tmp, seed):
+    """Phase 8. Returns (fixture root, dw launches, splat launches, loop
+    wall ms per step over steps 11-20)."""
+    t0 = time.perf_counter()
+    root = generate_fixture(f"{tmp}/simbev", num_scenes=20, samples_per_scene=4,
+                            H=224, W=480, seed=seed)
+    print(f"fixture: 20 scenes x 4 samples at 224 x 480 (16 train scenes, 4 "
+          f"val) in {time.perf_counter() - t0:.1f} s", flush=True)
+    run = f"{tmp}/run"
+    kw = dict(dataroot=str(root), nepochs=2, bsz=4, nworkers=6, fused_dw=True,
+              val_step=10, save_step=10, iou_log_step=10, seed=seed,
+              device="cuda")
+    mbconv_cuda.launches = splat_cuda.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    result = train(**kw, max_steps=TRAIN_STEPS, logdir=run)
+    dw_launches, splat_launches = mbconv_cuda.launches, splat_cuda.launches
+    train_s = time.perf_counter() - t0  # the main path ends here
+    assert result["counter"] == TRAIN_STEPS, result["counter"]
+    assert dw_launches == DW_PER_FORWARD * TRAIN_STEPS, (
+        f"{dw_launches} depthwise launches for {TRAIN_STEPS} train forwards "
+        f"(want {DW_PER_FORWARD} each)")
+    assert splat_launches > 0, "the training path never launched the splat kernel"
+    recs = read_metrics(f"{run}/metrics.jsonl")
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    vals = [r for r in recs if "val/iou" in r]
+    assert len(losses) == TRAIN_STEPS // 10 and all(map(math.isfinite, losses)), losses
+    assert len(vals) == TRAIN_STEPS // 10, vals
+    ckpts = set(os.listdir(f"{run}/ckpts"))
+    for name in ("model_000010.pt", "model_000020.pt", "model_best.pt",
+                 "model_final.pt"):
+        assert name in ckpts, (name, sorted(ckpts))
+    step_ms = [1e3 * r["train/step_time"] for r in recs if "train/step_time" in r]
+
+    resumed = train(**kw, max_steps=12, logdir=f"{tmp}/resumed",
+                    resume=f"{run}/ckpts/model_000010.pt")
+    assert resumed["start_counter"] == 10 and resumed["counter"] == 12, resumed
+
+    ck = torch.load(f"{run}/ckpts/model_best.pt", map_location="cpu",
+                    weights_only=True)
+    best = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+                         device="cpu")
+    best.load_state_dict(reference_state_dict(ck["model_state_dict"]))
+    art = f"{tmp}/best.pt"
+    export_predict(best.eval(), art, bsz=1, uint8_images=True)
+    one = inputs(np.random.default_rng(seed), 1, uint8=True)
+    with Running(serve(art, port=0, device="cuda")) as base:
+        got = post(base, one)
+    want = load_predict(art, device="cuda")(*one).cpu().numpy()
+    err, _ = assert_close("model_best.pt served", got, want, SERVE_TOL)
+    loss_txt = ", ".join(f"{v:.4f}" for v in losses)
+    val_txt = ", ".join("loss {:.4f} iou {:.4f}".format(r["val/loss"], r["val/iou"])
+                        for r in vals)
+    step_txt = ", ".join(f"{v:.1f}" for v in step_ms)
+    print(f"training: train() B0 bsz 4 fused_dw, {TRAIN_STEPS} steps in "
+          f"{train_s:.1f} s (fixture loader, 6 threads; validations and "
+          f"checkpoints included); losses {loss_txt}; val {val_txt}; "
+          f"launches: dw_conv_stats {dw_launches} (= {DW_PER_FORWARD} x "
+          f"{TRAIN_STEPS} train forwards), splat {splat_launches} ({TRAIN_STEPS} train + "
+          f"{splat_launches - TRAIN_STEPS} validation forwards); checkpoints "
+          f"{sorted(ckpts)}; resume from model_000010.pt continued at "
+          f"{resumed['start_counter']} to {resumed['counter']}; model_best.pt "
+          f"(step {ck['counter']}, val IoU {ck['val_iou']:.4f}) exported and "
+          f"served one request (max |served - direct| {err:.3e}); loop wall "
+          f"ms per step {step_txt} (per 10-step window)", flush=True)
+    return root, dw_launches, splat_launches, step_ms[-1]
+
+
+def zero_dropout(model):
+    """Dropout probabilities and drop-connect rates to 0 (phase 9 only)."""
+    for m in model.modules():
+        if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
+            m.p = 0.0
+        elif isinstance(m, MBConvBlock):
+            m.drop_connect_rate = 0.0
+
+
+# card vs CPU, one B0 train step in f32, TF32 off. The loss and gradients
+# go through 16 depthwise kernels, cuDNN's and the CPU's conv algorithms
+# and the splat's atomic sums: LOSS_TOL relative for the loss, GRAD_TOL
+# relative (L2) for the global norm and for each parameter's gradient; a
+# gradient that is 0 up to rounding (a bias ahead of a train-mode BN) is
+# held instead to GRAD_ABS of the global norm. Adam's first step moves each
+# parameter by lr * g / (|g| + eps), g its gradient (clipped, plus weight
+# decay): the two updates may differ by lr |g_card - g_cpu| / (min |g| +
+# eps), plus rounding (1e-6 of |p|). Running stats: STATS_TOL relative plus
+# 1e-6 absolute (means near 0).
+LOSS_TOL, GRAD_TOL, GRAD_ABS, STATS_TOL = 1e-4, 1e-3, 1e-6, 1e-4
+
+
+def phase_card_vs_cpu(root, seed):
+    """Phase 9."""
+    cpu = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+                        fused_dw=True, device="cpu",
+                        generator=torch.Generator().manual_seed(seed))
+    zero_dropout(cpu)
+    card = copy.deepcopy(cpu).cuda()
+    _, valloader = compile_data("unused", root, DataAugConf(), GridConf(), bsz=2,
+                                nworkers=2, dataset_kwargs={"device_normalize": True})
+    batch = next(iter(valloader))[:7]
+    before = {k: v.detach().clone() for k, v in cpu.named_parameters()}
+    states, metrics = {}, {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
+        states[name] = create_train_state(model)
+        launches = mbconv_cuda.launches
+        metrics[name] = make_train_step(model, 2.13, device=dev)(states[name], batch)
+        if dev == "cuda":
+            assert mbconv_cuda.launches == launches + DW_PER_FORWARD, \
+                "the card's step missed the kernel"
+    torch.cuda.synchronize()
+    lc, lg = float(metrics["cpu"]["loss"]), float(metrics["card"]["loss"])
+    assert math.isfinite(lg) and abs(lg - lc) <= LOSS_TOL * max(1.0, abs(lc)), (lg, lc)
+    nc, ng = float(metrics["cpu"]["grad_norm"]), float(metrics["card"]["grad_norm"])
+    assert abs(ng - nc) <= GRAD_TOL * nc, (ng, nc)
+    lr, wd, eps = 1e-3, 1e-7, 1e-8
+    worst_g = worst_p = 0.0
+    n_abs = flipped = 0
+    gpu_params = dict(card.named_parameters())
+    for k, pc in cpu.named_parameters():
+        pg = gpu_params[k].detach().cpu()
+        gc, gg = pc.grad, gpu_params[k].grad.cpu()
+        diff, ref = (gg - gc).norm().item(), gc.norm().item()
+        if diff <= GRAD_TOL * ref:
+            worst_g = max(worst_g, diff / ref if ref else 0.0)
+        else:
+            assert diff <= GRAD_ABS * nc, (k, diff, ref)
+            n_abs += 1
+        p0 = before[k]
+        ec, eg = gc + wd * p0, gg + wd * p0
+        allowed = (lr * (eg - ec).abs() / (torch.minimum(ec.abs(), eg.abs()) + eps)
+                   + 1e-6 * p0.abs() + 1e-9)
+        used = ((pg - pc.detach()).abs() / allowed).max().item()
+        assert used <= 1.0, (k, used)
+        worst_p = max(worst_p, used)
+        flipped += int(((pg - p0) * (pc.detach() - p0) < 0).sum())
+    gpu_buffers = dict(card.named_buffers())
+    worst_s, n_bn = 0.0, 0
+    for k, bc in cpu.named_buffers():
+        if not k.endswith(("running_mean", "running_var")):
+            continue
+        n_bn += 1
+        used = ((gpu_buffers[k].cpu() - bc).abs() / (STATS_TOL * bc.abs() + 1e-6)).max().item()
+        assert used <= 1.0, (k, used)
+        worst_s = max(worst_s, used)
+    n_par = len(gpu_params)
+    print(f"card vs CPU, one B0 train step at bsz 2 (fused_dw: the kernel on "
+          f"the card, the plain version on the CPU; dropout 0; f32, TF32 off): "
+          f"loss {lg:.6f} vs {lc:.6f}, grad global norm {ng:.6f} vs {nc:.6f} "
+          f"(relative {abs(ng - nc) / nc:.2e}; clipped at 5.0); parameter "
+          f"gradients: {n_par - n_abs} of {n_par} within {GRAD_TOL} relative L2 "
+          f"(worst {worst_g:.2e}), {n_abs} zero up to rounding, within "
+          f"{GRAD_ABS} of the global norm; parameters after Adam within the "
+          f"stated bound (at most {worst_p:.2f} of it; {flipped} entries moved "
+          f"in opposite directions, as the bound allows near g = 0); {n_bn} BN "
+          f"running "
+          f"stats within {STATS_TOL} relative + 1e-6 (at most {worst_s:.2f} of "
+          f"it)", flush=True)
+
+
+def random_batch(rng, B):
+    """A train batch on the card: uint8 images, the rig, sparse labels."""
+    args = inputs(rng, B, uint8=True)
+    binimg = (rng.uniform(size=(B, 1, 200, 200)) < 0.02).astype(np.float32)
+    return tuple(torch.as_tensor(a).cuda() for a in (*args, binimg))
+
+
+def train_step_fn(fused: bool, seed: int, batch):
+    """One train step of a fresh B0 model (seeded weights) on ``batch``."""
+    model = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+                          fused_dw=fused, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model)
+    step = make_train_step(model, 2.13, device="cuda")
+    return lambda: step(state, batch)
+
+
+def device_allocs() -> int:
+    """cudaMalloc calls of the caching allocator so far (each one may
+    synchronise the host with the device)."""
+    return torch.cuda.memory_stats().get("num_device_alloc", 0)
+
+
+def phase_train_times(card, rng, seed, loop_step_ms):
+    """Phase 10. The two models (fused_dw off and on) are timed in turns,
+    off, on, on, off, for each TF32 setting, so drift on the card or the
+    host falls on both alike."""
+    for B in (8, 4):
+        batch = random_batch(rng, B)
+        steps = {fused: train_step_fn(fused, seed, batch) for fused in (False, True)}
+        name = "train_step_ms_bsz8" if B == 8 else "train_step_ms_bsz4"
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            windows, allocs = {False: [], True: []}, {False: 0, True: 0}
+            for fused in (False, True, True, False):
+                before = device_allocs()
+                windows[fused].append(cuda_ms(steps[fused], iters=10, warmup=3))
+                allocs[fused] += device_allocs() - before
+            for fused in (False, True):
+                w = windows[fused]
+                print(f"times on {card}: {name} {sum(w) / len(w):.3f} (fused_dw "
+                      f"{'on' if fused else 'off'}, cudnn TF32 "
+                      f"{'on' if tf32 else 'off'}; CUDA events, two windows of "
+                      f"10 steps after 3, timed in turns off/on/on/off: "
+                      f"{w[0]:.3f}, {w[1]:.3f}; {allocs[fused]} cudaMalloc calls "
+                      f"in them; inputs on the card)", flush=True)
+        if B == 4:
+            # fused_dw off and on with TF32 (where the host sets the step
+            # time); TF32 off for the fused step only, as phase 8 ran it
+            for fused, tf32 in ((False, True), (True, False), (True, True)):
+                torch.backends.cudnn.allow_tf32 = tf32
+                busy, text = profile_train_step(steps[fused], 3, (B, 256, 200, 200))
+                print(f"profile bsz-4 train step, fused_dw "
+                      f"{'on' if fused else 'off'}, cudnn TF32 "
+                      f"{'on' if tf32 else 'off'}: {text}", flush=True)
+                if not tf32:
+                    idle = ("not measured" if busy is None else
+                            f"{max(0.0, 1 - busy / loop_step_ms):.3f}")
+                    print(f"train() loop device idle share (phase 8, steps "
+                          f"11-20, TF32 off): {idle} (device busy "
+                          f"{busy if busy is None else round(busy, 3)} ms a step "
+                          f"from this profile over loop wall "
+                          f"{loop_step_ms:.1f} ms a step)", flush=True)
+        del steps
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def main(argv=None) -> int:
@@ -373,7 +845,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     # full f32 for every check, as the JAX package's f32 path computes;
-    # phase 5 also times cuDNN's default TF32 convolutions
+    # phases 5 and 10 also time cuDNN's default TF32 convolutions
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -382,11 +854,14 @@ def main(argv=None) -> int:
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    splat_cuda.build()
-    ptxas = [ln.strip() for ln in splat_cuda.build_log.splitlines() if "registers" in ln]
-    print(f"build: splat.cu -> {splat_cuda.library_path().name} in "
-          f"{time.perf_counter() - t0:.1f} s; {' | '.join(ptxas) or 'cached'}",
-          flush=True)
+    libs = (splat_cuda.LIB, mbconv_cuda.LIB)
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source, at once
+        built = list(pool.map(lambda lib: lib.build(), libs))
+    for lib, path in zip(libs, built):
+        ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln]
+        print(f"build: {lib.source.name} -> {path.name}; "
+              f"{' | '.join(ptxas) or 'cached'}", flush=True)
+    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. the kernel against its plain version
     B, P, C, S = 8, 6 * 41 * 8 * 22, 64, 200 * 200
@@ -457,10 +932,27 @@ def main(argv=None) -> int:
                       f"{profile_forward(fn)}", flush=True)
         torch.backends.cudnn.allow_tf32 = False
 
+        # 7. the depthwise conv + BN moments kernel against its plain version
+        dw_err, dw_times = phase_dw(gen)
+
+        # 8. training at full width through train(); 9. card vs CPU
+        root, dw_launches, splat_train, loop_step_ms = phase_training(tmp, args.seed)
+        phase_card_vs_cpu(root, args.seed)
+
+        # 10. train-step times and where the device time goes
+        phase_train_times(card, rng, args.seed, loop_step_ms)
+
+    print(f"main-path launches: splat {launches} serving + {splat_train} "
+          f"training; dw_conv_stats {dw_launches} training", flush=True)
     kernels = [{"name": "splat", "route": "cuda",
                 "source": "lss_carla_torch/csrc/splat.cu",
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
-                "launches": launches, "max_abs_err": max_err, **times}]
+                "launches": launches + splat_train, "max_abs_err": max_err,
+                **times},
+               {"name": "dw_conv_stats", "route": "cuda",
+                "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
+                "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
+                "launches": dw_launches, "max_abs_err": dw_err, **dw_times}]
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

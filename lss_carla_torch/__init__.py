@@ -2,9 +2,11 @@
 
 Mirrors the layout and names of the JAX package ``lss_carla_tpu`` (the
 reference it is held against) but imports nothing from it: ``configs``,
-``ops``, ``models``, ``utils``, ``serving`` and ``server`` each have a
-counterpart there. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; the splat runs as the hand-written CUDA kernel in
-``csrc/splat.cu`` on a CUDA tensor and as its plain PyTorch version on a
-CPU tensor.
+``ops``, ``models``, ``data``, ``training``, ``utils``, ``serving`` and
+``server`` each have a counterpart there; ``train`` is the training CLI.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+The TPU kernels run as hand-written CUDA kernels on CUDA tensors and as
+their plain PyTorch versions on CPU tensors: the splat (``csrc/splat.cu``)
+and the depthwise conv with its BN batch moments
+(``csrc/dw_conv_stats.cu``, train mode with ``fused_dw``).
 """

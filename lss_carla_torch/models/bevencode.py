@@ -21,14 +21,14 @@ import torch
 from torch import nn
 
 from lss_carla_torch.models.layers import (
-    BasicBlock, ConvBNReLU, Dropout2d, Up, Upsample)
+    BasicBlock, BatchNorm2d, ConvBNReLU, Dropout2d, Up, Upsample)
 
 
 class BevEncode(nn.Module):
     def __init__(self, inC: int, outC: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(inC, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64)
+        self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.layer1 = nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64))
         self.layer2 = nn.Sequential(BasicBlock(64, 128, 2), BasicBlock(128, 128))

@@ -24,10 +24,11 @@ from lss_carla_torch.models.layers import Up
 
 
 class CamEncode(nn.Module):
-    def __init__(self, D: int, C: int, variant: str = "b0"):
+    def __init__(self, D: int, C: int, variant: str = "b0",
+                 fused_dw: bool = False):
         super().__init__()
         self.D, self.C = D, C
-        self.trunk = EfficientNetTrunk(variant)
+        self.trunk = EfficientNetTrunk(variant, fused_dw=fused_dw)
         ch = endpoint_channels(variant)
         self.up1 = Up(ch["reduction_5"] + ch["reduction_4"], 512)
         self.dropout = nn.Dropout(0.2)

@@ -7,7 +7,12 @@ Counterpart of ``lss_carla_tpu/models/efficientnet.py``; module names follow
 * "SAME" padding as XLA computes it, which is asymmetric: the low side gets
   ``total // 2``. It is applied with an explicit ``F.pad`` from the input's
   shape at run time, on the stem and on every depthwise conv.
-* BN eps 1e-3 and torch momentum 0.01.
+* BN eps 1e-3 and torch momentum 0.01; running variances are biased, as
+  flax keeps them (``layers.BatchNorm2d``).
+* ``fused_dw``: in train mode each block's depthwise conv and its BN batch
+  moments run in one pass (``ops/mbconv.py::dw_conv_stats``, the CUDA
+  kernel on the card), with the same parameters and buffers, so one state
+  dict serves both paths. Eval mode ignores it.
 * SE squeezes to ``int(cin * 0.25)`` channels of the block's input filters;
   its convs have a bias.
 * The residual applies only when ``stride == 1 and cin == cout``;
@@ -27,6 +32,9 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from lss_carla_torch.models.layers import BatchNorm2d
+from lss_carla_torch.ops.mbconv import fused_dw_bn_swish, same_pad
 
 # (expand_ratio, kernel, stride, in_filters, out_filters, num_repeats)
 _B0_BLOCKS = (
@@ -101,30 +109,22 @@ def endpoint_channels(variant: str) -> Dict[str, int]:
     return chans
 
 
-def same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
-    """XLA "SAME" padding of NCHW ``x`` for a k x k conv at stride s: the
-    output has ceil(n / s) rows, and the low side gets ``total // 2``."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):  # F.pad order: W first, then H
-        total = max((-(-n // s) - 1) * s + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
-
-
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c, eps=_BN_EPS, momentum=_BN_MOMENTUM)
 
 
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with squeeze-excitation and drop-connect."""
 
     def __init__(self, expand: int, kernel: int, stride: int, cin: int,
-                 cout: int, drop_connect_rate: float = 0.0):
+                 cout: int, drop_connect_rate: float = 0.0,
+                 fused_dw: bool = False):
         super().__init__()
         mid = cin * expand
         self.expand, self.kernel, self.stride = expand, kernel, stride
         self.id_skip = stride == 1 and cin == cout
         self.drop_connect_rate = drop_connect_rate
+        self.fused_dw = fused_dw
         if expand != 1:
             self._expand_conv = nn.Conv2d(cin, mid, 1, bias=False)
             self._bn0 = _bn(mid)
@@ -141,8 +141,18 @@ class MBConvBlock(nn.Module):
         inputs = x
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))
-        x = self._depthwise_conv(same_pad(x, self.kernel, self.stride))
-        x = F.silu(self._bn1(x))
+        if self.fused_dw and self.training:
+            # the conv and its batch moments in one pass; BN from the moments.
+            # The kernel takes contiguous NCHW (a channels-last input, e.g.
+            # from images stacked as HWC views, is copied once here)
+            bn = self._bn1
+            x, mean, var = fused_dw_bn_swish(
+                x.contiguous(), self._depthwise_conv.weight, bn.weight,
+                bn.bias, self.stride, bn.eps)
+            bn.update_running_stats(mean, var)
+        else:
+            x = self._depthwise_conv(same_pad(x, self.kernel, self.stride))
+            x = F.silu(self._bn1(x))
         se = x.mean((2, 3), keepdim=True)
         se = self._se_expand(F.silu(self._se_reduce(se)))
         x = torch.sigmoid(se) * x
@@ -161,7 +171,8 @@ class MBConvBlock(nn.Module):
 class EfficientNetTrunk(nn.Module):
     """Stem + MBConv blocks + endpoint harvest (no classifier head)."""
 
-    def __init__(self, variant: str = "b0", drop_connect_rate: float = 0.2):
+    def __init__(self, variant: str = "b0", drop_connect_rate: float = 0.2,
+                 fused_dw: bool = False):
         super().__init__()
         width, _, _ = VARIANTS[variant]
         stem_ch = round_filters(32, width)
@@ -170,7 +181,8 @@ class EfficientNetTrunk(nn.Module):
         plan = block_plan(variant)
         self._blocks = nn.ModuleList(
             MBConvBlock(**args,
-                        drop_connect_rate=drop_connect_rate * idx / len(plan))
+                        drop_connect_rate=drop_connect_rate * idx / len(plan),
+                        fused_dw=fused_dw)
             for idx, args in enumerate(plan))
 
     def forward(self, x) -> Dict[str, torch.Tensor]:

@@ -4,19 +4,50 @@ NCHW, torch idiom. Names follow the reference state dict: ``Up`` holds its
 convs in ``conv`` (``conv.0``/``conv.1``/``conv.3``/``conv.4``), and
 ``ConvBNReLU`` is a ``Sequential`` that splices into a parent
 ``Sequential`` (``*ConvBNReLU(...)``) so the parent's indices stay the
-reference's. Convolutions use symmetric ``k//2`` padding; BN is torch's
-default (eps 1e-5, momentum 0.1).
+reference's. Convolutions use symmetric ``k//2`` padding; BN is
+``BatchNorm2d`` below at torch's default eps 1e-5 and momentum 0.1.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lss_carla_torch.ops.image import upsample_align_corners
 
 # channel dropout: zeroes whole feature maps in training, identity in eval
 Dropout2d = nn.Dropout2d
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows flax.
+
+    Train mode normalises with the biased batch variance, as torch does,
+    but torch stores the unbiased one (n / (n - 1) times larger) in
+    ``running_var``; flax, and so the JAX package, stores the biased one.
+    This class stores the biased variance, with flax's update
+    ``running = (1 - m) * running + m * batch`` at torch's momentum m.
+    Eval mode and the state-dict names are torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
+                                       correction=0)
+        self.update_running_stats(mean, var)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+    @torch.no_grad()
+    def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
+        """Fold one batch's mean and biased variance into the running
+        stats."""
+        m = self.momentum
+        self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+        self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 class ConvBNReLU(nn.Sequential):
@@ -26,7 +57,7 @@ class ConvBNReLU(nn.Sequential):
         super().__init__(
             nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
                       bias=False),
-            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+            BatchNorm2d(cout, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True))
 
 
@@ -65,15 +96,15 @@ class BasicBlock(nn.Module):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
                                bias=False)
-        self.bn1 = nn.BatchNorm2d(cout)
+        self.bn1 = BatchNorm2d(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout)
+        self.bn2 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
-                nn.BatchNorm2d(cout))
+                BatchNorm2d(cout))
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)

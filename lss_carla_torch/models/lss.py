@@ -8,7 +8,9 @@ returns logits ``(B, outC, X, Y)``.
 
 ``splat_method`` is kept for config parity with the JAX package. Every
 method runs the same splat: the hand-written CUDA kernel on a CUDA tensor,
-the plain ``splat_reference`` on a CPU tensor.
+the plain ``splat_reference`` on a CPU tensor. ``fused_dw`` runs every
+MBConv block's depthwise conv and BN moments in one pass in train mode
+(``ops/mbconv.py``); it changes no parameter.
 """
 
 from __future__ import annotations
@@ -31,13 +33,15 @@ from lss_carla_torch.utils.backend import resolve_device
 class LiftSplatShoot(nn.Module):
     def __init__(self, grid_conf: GridConf, data_aug_conf: DataAugConf,
                  outC: int = 1, camC: int = 64, downsample: int = 16,
-                 variant: str = "b0", splat_method: str = "scatter"):
+                 variant: str = "b0", splat_method: str = "scatter",
+                 fused_dw: bool = False):
         super().__init__()
         if splat_method not in METHODS:
             raise ValueError(f"unknown splat method: {splat_method}")
         self.grid_conf, self.data_aug_conf = grid_conf, data_aug_conf
         self.outC, self.camC, self.downsample = outC, camC, downsample
         self.variant, self.splat_method = variant, splat_method
+        self.fused_dw = fused_dw
         self.dx, self.bx, self.nx = gen_dx_bx(
             grid_conf.xbound, grid_conf.ybound, grid_conf.zbound)
         frustum = create_frustum(data_aug_conf.final_dim, downsample,
@@ -46,7 +50,7 @@ class LiftSplatShoot(nn.Module):
         self.register_buffer("frustum", torch.from_numpy(frustum.copy()),
                              persistent=False)
         self.D = frustum.shape[0]
-        self.camencode = CamEncode(self.D, camC, variant)
+        self.camencode = CamEncode(self.D, camC, variant, fused_dw)
         self.bevencode = BevEncode(int(self.nx[2]) * camC, outC)
 
     def config(self) -> dict:
@@ -55,7 +59,7 @@ class LiftSplatShoot(nn.Module):
                 "data_aug_conf": self.data_aug_conf.to_dict(),
                 "outC": self.outC, "camC": self.camC,
                 "downsample": self.downsample, "variant": self.variant,
-                "splat_method": self.splat_method}
+                "splat_method": self.splat_method, "fused_dw": self.fused_dw}
 
     def get_geometry(self, rots, trans, intrins, post_rots, post_trans):
         return get_geometry(self.frustum, rots, trans, intrins, post_rots,

@@ -1,0 +1,116 @@
+"""Training CLI of the port: ``train_simbev.py``'s flags that this slice
+keeps, with the same names and defaults, plus ``--fused_dw`` and
+``--device``.
+
+    python -m lss_carla_torch.train --dataroot /data/SimBEV --bsz 4 \\
+        --nworkers 8 [--fused_dw] [--max_steps N]
+
+The JAX CLI's other flags are accepted only to say where they wait in
+``ROADMAP.md``: passing one exits with that message.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from lss_carla_torch.training.loop import UNPORTED, train
+
+# train_simbev.py flags that wait in ROADMAP.md: train()'s, and one more
+_UNPORTED_FLAGS = {**{k: item for k, (_, item) in UNPORTED.items()},
+                   "supervise": "A5, the watchdog and --supervise"}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Train LSS on SimBEV (PyTorch/CUDA)")
+    p.add_argument("--dataroot", type=str, required=True,
+                   help="Path to SimBEV dataset root directory")
+    p.add_argument("--nepochs", type=int, default=100)
+    p.add_argument("--gpuid", type=int, default=0,
+                   help="CUDA device index (with --device cuda)")
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--bsz", type=int, default=4)
+    p.add_argument("--nworkers", type=int, default=4)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--weight_decay", type=float, default=1e-7)
+    p.add_argument("--H", type=int, default=224)
+    p.add_argument("--W", type=int, default=480)
+    p.add_argument("--final_h", type=int, default=128)
+    p.add_argument("--final_w", type=int, default=352)
+    p.add_argument("--ncams", type=int, default=6)
+    for name, default in (("xbound", (-50.0, 50.0, 0.5)),
+                          ("ybound", (-50.0, 50.0, 0.5)),
+                          ("zbound", (-10.0, 10.0, 20.0)),
+                          ("dbound", (4.0, 45.0, 1.0))):
+        p.add_argument(f"--{name}", type=float, nargs=3, default=default,
+                       metavar=("MIN", "MAX", "STEP"))
+    p.add_argument("--logdir", type=str, default="./runs/simbev")
+    p.add_argument("--val_step", type=int, default=500)
+    p.add_argument("--save_step", type=int, default=1000)
+    p.add_argument("--resize_lim", type=float, nargs=2, default=(1.0, 1.0))
+    p.add_argument("--bot_pct_lim", type=float, nargs=2, default=(0.0, 0.0))
+    p.add_argument("--rot_lim", type=float, nargs=2, default=(0.0, 0.0))
+    p.add_argument("--rand_flip", action="store_true", default=False)
+    p.add_argument("--resume", type=str, default=None,
+                   help="a checkpoint file, or a directory (its newest)")
+    p.add_argument("--lr_schedule", type=str, default="constant",
+                   choices=["constant", "cosine", "linear"])
+    p.add_argument("--warmup_steps", type=int, default=0)
+    p.add_argument("--decay_steps", type=int, default=0,
+                   help="schedule horizon in steps (0 = auto)")
+    p.add_argument("--splat_method", type=str, default="scatter",
+                   choices=["scatter", "sorted", "pallas"],
+                   help="kept for parity; every method runs the same splat")
+    p.add_argument("--pos_weight", type=float, nargs="+", default=[2.13])
+    p.add_argument("--label_mode", type=str, default="vehicle_binary",
+                   choices=["vehicle_binary", "multiclass"])
+    p.add_argument("--label_classes", type=int, nargs="+", default=[0, 1, 2, 3])
+    p.add_argument("--extrinsic_noise", type=float, nargs=2, default=None,
+                   metavar=("ROT_DEG_STD", "TRANS_M_STD"))
+    p.add_argument("--host_normalize", action="store_true",
+                   help="normalise images on the host instead of the device")
+    p.add_argument("--variant", type=str, default="b0",
+                   choices=["b0", "b1", "b2", "b3", "b4"])
+    p.add_argument("--fused_dw", action="store_true",
+                   help="run each MBConv depthwise conv and its BN batch "
+                        "moments in one pass (the CUDA kernel "
+                        "csrc/dw_conv_stats.cu on the card)")
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--iou_log_step", type=int, default=100)
+    p.add_argument("--seed", type=int, default=42)
+    for name in sorted(_UNPORTED_FLAGS):
+        p.add_argument(f"--{name}", nargs="*", default=None,
+                       help=argparse.SUPPRESS)
+    return p
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
+    if given:
+        parser.error("not ported to lss_carla_torch yet: " + "; ".join(
+            f"--{k} (ROADMAP.md {_UNPORTED_FLAGS[k]})" for k in given))
+    device = f"cuda:{args.gpuid}" if args.device == "cuda" else "cpu"
+    train(
+        dataroot=args.dataroot, nepochs=args.nepochs, H=args.H, W=args.W,
+        final_dim=(args.final_h, args.final_w), ncams=args.ncams,
+        bsz=args.bsz, nworkers=args.nworkers, lr=args.lr,
+        weight_decay=args.weight_decay, logdir=args.logdir,
+        val_step=args.val_step, save_step=args.save_step,
+        resize_lim=tuple(args.resize_lim), bot_pct_lim=tuple(args.bot_pct_lim),
+        rot_lim=tuple(args.rot_lim), rand_flip=args.rand_flip,
+        xbound=tuple(args.xbound), ybound=tuple(args.ybound),
+        zbound=tuple(args.zbound), dbound=tuple(args.dbound),
+        resume=args.resume, lr_schedule=args.lr_schedule,
+        warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
+        splat_method=args.splat_method, pos_weight=tuple(args.pos_weight),
+        label_mode=args.label_mode, label_classes=tuple(args.label_classes),
+        extrinsic_noise=(tuple(args.extrinsic_noise)
+                         if args.extrinsic_noise else None),
+        device_normalize=not args.host_normalize, variant=args.variant,
+        fused_dw=args.fused_dw, max_steps=args.max_steps,
+        iou_log_step=args.iou_log_step, seed=args.seed, device=device)
+
+
+if __name__ == "__main__":
+    main()

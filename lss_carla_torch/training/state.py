@@ -1,0 +1,159 @@
+"""Train state and optimizer: counterpart of ``lss_carla_tpu/training/state.py``.
+
+The optimizer computes what the JAX package's optax chain computes (the
+reference trainer's torch ``Adam(lr, weight_decay=1e-7)`` after
+``clip_grad_norm_(5.0)``, ``train_simbev.py:192,247``):
+
+    clip_by_global_norm(max_grad_norm)   # optax's rule, below
+    -> add_decayed_weights(weight_decay) # L2 into the Adam moments
+    -> scale_by_adam(0.9, 0.999, 1e-8)
+    -> -lr * schedule(count)
+
+torch ``Adam(weight_decay=...)`` folds the L2 term into the gradient before
+the moments, as ``add_decayed_weights`` does. The clip is optax's: scale by
+``max_norm / ||g||`` only when ``||g|| >= max_norm``, with no epsilon
+(``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and is not used).
+The schedule's value for update ``count`` (0 for the first) is set as the
+learning rate before each step, as optax's ``scale_by_learning_rate``
+reads its count. No EMA yet (ROADMAP.md A5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Iterable, List
+
+import torch
+from torch import nn
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    """optax.linear_schedule: init -> end over ``steps``, then held."""
+    if steps <= 0:
+        return lambda count: init
+
+    def schedule(count):
+        frac = 1.0 - min(max(count, 0), steps) / steps
+        return (init - end) * frac + end
+    return schedule
+
+
+def _cosine(init: float, steps: int) -> Schedule:
+    """optax.cosine_decay_schedule with alpha 0: init -> 0 over ``steps``."""
+    if steps <= 0:
+        raise ValueError(f"cosine decay needs positive steps, got {steps}")
+    return lambda count: init * 0.5 * (1.0 + math.cos(
+        math.pi * min(count, steps) / steps))
+
+
+def _join(first: Schedule, then: Schedule, boundary: int) -> Schedule:
+    """optax.join_schedules with one boundary."""
+    return lambda count: first(count) if count < boundary else then(count - boundary)
+
+
+def make_lr_schedule(lr: float, lr_schedule: str = "constant",
+                     warmup_steps: int = 0, decay_steps: int = 0) -> Schedule:
+    """Update count -> learning rate. "constant" (the reference's), or
+    "cosine" / "linear": a linear warmup from 0 to ``lr`` over
+    ``warmup_steps``, then a decay to 0 at ``decay_steps``."""
+    if lr_schedule not in ("constant", "cosine", "linear"):
+        raise ValueError(f"unknown lr_schedule {lr_schedule!r} "
+                         "(constant|cosine|linear)")
+    if lr_schedule == "constant":
+        return _linear(0.0, lr, warmup_steps) if warmup_steps else (lambda _: lr)
+    if decay_steps <= warmup_steps:
+        raise ValueError(f"{lr_schedule} schedule needs decay_steps "
+                         f"(total steps) > warmup_steps; got "
+                         f"{decay_steps} <= {warmup_steps}")
+    if lr_schedule == "cosine":
+        return _join(_linear(0.0, lr, warmup_steps),
+                     _cosine(lr, decay_steps - warmup_steps), warmup_steps)
+    return _join(_linear(0.0, lr, max(warmup_steps, 1)),
+                 _linear(lr, 0.0, decay_steps - warmup_steps), warmup_steps)
+
+
+def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry, as an f32 0-d tensor."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def clip_by_global_norm_(tensors: List[torch.Tensor],
+                         max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: when the global norm n is at
+    least ``max_norm`` every tensor becomes ``(t / n) * max_norm``, else it
+    is left bit for bit. No host sync. Returns n (before clipping)."""
+    norm = global_norm(tensors)
+    keep = norm < max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(tensors, torch.where(keep, one, norm))
+    torch._foreach_mul_(tensors, torch.where(keep, one, one * max_norm))
+    return norm
+
+
+class Optimizer:
+    """The optax chain above over ``params``. ``step(count)`` clips the
+    gradients, sets the learning rate ``schedule(count)`` and takes one
+    Adam step; it returns the gradients' global norm before clipping."""
+
+    def __init__(self, params: Iterable[nn.Parameter], lr: float,
+                 weight_decay: float, max_grad_norm: float,
+                 schedule: Schedule):
+        self.params = [p for p in params if p.requires_grad]
+        self.max_grad_norm = max_grad_norm
+        self.schedule = schedule
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self, count: int) -> torch.Tensor:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            norm = clip_by_global_norm_(grads, self.max_grad_norm)
+        else:
+            norm = global_norm(grads)
+        for group in self.adam.param_groups:
+            group["lr"] = self.schedule(count)
+        self.adam.step()
+        return norm
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state)
+
+
+def make_optimizer(params: Iterable[nn.Parameter], lr: float = 1e-3,
+                   weight_decay: float = 1e-7, max_grad_norm: float = 5.0,
+                   lr_schedule: str = "constant", warmup_steps: int = 0,
+                   decay_steps: int = 0) -> Optimizer:
+    return Optimizer(params, lr, weight_decay, max_grad_norm,
+                     make_lr_schedule(lr, lr_schedule, warmup_steps,
+                                      decay_steps))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its optimizer, the update count (``step``, the
+    reference's ``counter``) and the learning-rate schedule."""
+    model: nn.Module
+    optimizer: Optimizer
+    step: int = 0
+
+    @property
+    def schedule(self) -> Schedule:
+        return self.optimizer.schedule
+
+
+def create_train_state(model: nn.Module, lr: float = 1e-3,
+                       weight_decay: float = 1e-7, max_grad_norm: float = 5.0,
+                       lr_schedule: str = "constant", warmup_steps: int = 0,
+                       decay_steps: int = 0) -> TrainState:
+    return TrainState(model, make_optimizer(
+        model.parameters(), lr, weight_decay, max_grad_norm, lr_schedule,
+        warmup_steps, decay_steps))

@@ -36,7 +36,11 @@ def test_import_pulls_in_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert "lss_carla_torch.ops.splat_cuda" in modules
+    assert {"lss_carla_torch.ops.splat_cuda", "lss_carla_torch.ops.mbconv_cuda",
+            "lss_carla_torch.ops.mbconv", "lss_carla_torch.training.loop",
+            "lss_carla_torch.training.step", "lss_carla_torch.data.simbev",
+            "lss_carla_torch.data.loader", "lss_carla_torch.utils.checkpoint",
+            "lss_carla_torch.train"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -76,6 +80,25 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
     predict = serving.load_predict(path, device="cpu")
     args = serving.example_args(serving.read_signature(path))
     assert predict(*args).device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
+    """train(), the training CLI and the step factories default to cuda and
+    raise with no GPU, before reading any data."""
+    from lss_carla_torch.train import main
+    from lss_carla_torch.training.loop import train
+    from lss_carla_torch.training.step import (make_eval_step,
+                                               make_predict_step,
+                                               make_train_step)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        train(str(tmp_path / "nowhere"))
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        main(["--dataroot", str(tmp_path / "nowhere")])
+    model = torch.nn.Linear(1, 1)
+    for build in (make_train_step, make_eval_step, make_predict_step):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            build(model)
+        assert callable(build(model, device="cpu"))
 
 
 def test_artifact_signature_round_trip(tmp_path):

@@ -14,6 +14,7 @@ from lss_carla_tpu.ops import geometry as JG
 from lss_carla_tpu.ops import splat as JS
 from lss_carla_tpu.ops.splat_pallas import splat_pallas_batched
 
+from lss_carla_torch.ops import _nvcc
 from lss_carla_torch.ops import splat as S
 from lss_carla_torch.ops import splat_cuda
 
@@ -135,7 +136,7 @@ def test_cuda_module_imports_without_nvcc_and_fails_only_on_build(
     tensors instead of computing on the CPU."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.setenv("PATH", str(tmp_path))
-    monkeypatch.setattr(splat_cuda, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "_build")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         splat_cuda.build()
     assert not (tmp_path / "_build").exists()

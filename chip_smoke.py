@@ -12,9 +12,11 @@ exits non-zero without the final result line:
    card, on seeded inputs with ~7 % of ids at the sentinel and NaN features
    at those points: (B 8, P 43,296, C 64, S 40,000) in f32 and in bf16, and
    S 160,000 in f32; then on the main path's own inputs (the model's lift
-   and geometry at bsz 8). Kernel, plain version and ``index_add_`` (the
-   one PyTorch call computing the same function, timed here only) are timed
-   beside the byte bound;
+   and geometry at bsz 8). The wrapper (zero fill, kernel and, for bf16,
+   the cast), plain version and ``index_add_`` (the one PyTorch call
+   computing the same function, timed here only) are timed beside the byte
+   bound, and the zero fill, the cast and the kernel's device time alone;
+   with the in-grid points a tile folds into one run of its sort-and-reduce;
 3. serving at full width: the B0 LSS model at the default config (6 x
    128 x 352 cameras, 41 depth bins, 200 x 200 grid) with seeded weights,
    exported with ``export_predict`` and served over HTTP by ``serve()``,
@@ -32,10 +34,12 @@ exits non-zero without the final result line:
    trunk at N 24 (bsz 4 x 6 cameras) in f32, and blocks 0, 1 and 11 in
    bf16: y, sum and sum of squares within a summation-order bound, and dx,
    dw through the autograd Function against the plain version's autograd.
-   The device time (torch.profiler) of the kernel, the plain version,
-   cuDNN's depthwise conv alone (the nearest library call) and cuDNN's
-   conv plus a ``var_mean`` pass stand beside the byte bound, and the
-   wrapper's back-to-back call time (CUDA events) beside them;
+   The kernel's device time (torch.profiler) stands beside the byte
+   bound; the device time of the kernel, the plain version, cuDNN's
+   depthwise conv alone (the nearest library call) and cuDNN's conv plus a
+   ``var_mean`` pass, each queued back to back behind a sleep kernel, and
+   the wrapper's back-to-back call time (CUDA events) beside them; each
+   call must put exactly one activity on the card;
 8. training at full width through the port's own ``train()``: B0 at the
    default config on a synthetic SimBEV fixture (224 x 480 sources), bsz 4,
    ``fused_dw``, 20 steps with a validation and a checkpoint every 10; the
@@ -46,16 +50,18 @@ exits non-zero without the final result line:
 9. one train step on the card (``fused_dw``: the kernel) against the same
    step on the CPU (the plain version), B0 at bsz 2, dropout and
    drop-connect 0, TF32 off: loss, gradients, the parameters after Adam
-   and every BN's running stats;
+   and every BN's running stats; beside it, as a reading, the same step
+   on the card through the kernels' plain versions;
 10. train-step times (``train_step_ms_bsz8`` and bsz 4, ``fused_dw`` off
     and on, cuDNN TF32 off and on), the device idle share of phase 8's
     loop, and a torch.profiler breakdown of one bsz-4 train step with
     ``fused_dw`` off and on.
 
-The line before the last is the kernels' JSON (name, route, source, TPU
-kernel replaced, launches on the main paths, error, times, bound); the
-last line is ``{"ok": true, "device": {...}}``. Without a GPU, or without
-the package beside it, the script fails before printing either.
+The last three lines are the card's name and power limit (``card: ...``),
+the kernels' JSON (name, route, source, TPU kernel replaced, launches on
+the main paths, error, times, bound) and ``{"ok": true, "device":
+{...}}``. Without a GPU, or without the package beside it, the script
+fails before printing any of them.
 """
 
 from __future__ import annotations
@@ -78,6 +84,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from kernel_compare import queued_ms
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.data.fixtures import generate_fixture
 from lss_carla_torch.data.loader import compile_data
@@ -138,26 +145,92 @@ def device_events(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def device_ms(fn, n: int = 20) -> float:
-    """Device time per call of all the kernels ``fn`` launches, summed
-    (torch.profiler, over n calls after a warm-up). Unlike ``cuda_ms``
-    it leaves out the host's time to issue each call, which bounds a
-    back-to-back loop of calls shorter than ~0.1 ms. Now and then a
-    profiling window comes back without device activity; it is profiled
-    again, up to three windows in all."""
+# Kineto keeps only the device records whose timestamps fall inside the
+# profiling window. On the H100 host these readings were taken on, a
+# window's device timestamps, mapped onto the host clock, once strayed 125
+# ms before the host events that launched them (PERF.md, PR 3), and
+# unpadded windows of short calls came back without device time. Host
+# sleeps at both ends keep the calls PROFILE_PAD_S from the edges. Records
+# are still lost inside padded windows, from another cause, so
+# device_profile retries and averages over the records kept. WINDOWS
+# keeps, for each window, the first device record's start less the first
+# host event's (launch latency plus any stray) and whether its records
+# were whole, for the lines that phase 7 and the run end print.
+PROFILE_PAD_S = 0.5
+WINDOWS = []  # (offset ms or None when the window saw no device record, whole)
+
+
+def profile_window(fn, n: int, **kw):
+    """torch.profiler over n calls of ``fn``, padded as above."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], **kw) as prof:
+        time.sleep(PROFILE_PAD_S)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+    return prof
+
+
+def clock_offset_ms(prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    starts = {True: [], False: []}
+    for e in prof.events():
+        if not getattr(e, "is_user_annotation", False):
+            starts[e.device_type == cuda].append(e.time_range.start)
+    if starts[True] and starts[False]:
+        return (min(starts[True]) - min(starts[False])) / 1e3
+    return None
+
+
+def device_profile(fn, n: int = 20, windows: int = 5) -> dict:
+    """{device activity name: (device ms per call, activities per call)}
+    of everything ``fn`` puts on the card (torch.profiler, over n calls
+    after a warm-up). Unlike ``cuda_ms`` it leaves out the host's time to
+    issue each call, which bounds a back-to-back loop of calls shorter than
+    ~0.1 ms. A window with some of its activity records lost (a count that
+    is not a multiple of n) or none is profiled again, up to ``windows`` in
+    all. Where records were lost in all of them, the last window's mean
+    time a record stands for each lost one; LOST_RECORDS counts such
+    calls."""
+    LOST_RECORDS[1] += 1
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        busy = sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / n
-        if busy > 0:
-            return busy
-    raise RuntimeError("the profiler saw no device time in three windows")
+    out = None
+    for _ in range(windows):
+        prof = profile_window(fn, n)
+        events = [e for e in device_events(prof) if e.count > 0]
+        if sum(e.self_device_time_total for e in events) <= 0:
+            WINDOWS.append((None, False))
+            continue
+        per_call = {e.key: max(1, round(e.count / n)) for e in events}
+        out = {e.key: (e.self_device_time_total / e.count / 1e3 * per_call[e.key],
+                       per_call[e.key]) for e in events}
+        whole = all(e.count == per_call[e.key] * n for e in events)
+        WINDOWS.append((clock_offset_ms(prof), whole))
+        if whole:
+            return out
+    if out is None:
+        raise RuntimeError(f"the profiler saw no device time in {windows} windows")
+    LOST_RECORDS[0] += 1
+    return out
+
+
+LOST_RECORDS = [0, 0]  # device_profile calls: with records lost in all windows, in all
+
+
+def profiler_note() -> str:
+    """What torch.profiler kept in device_profile's windows so far."""
+    off = sorted(o for o, _ in WINDOWS if o is not None) or [float("nan")]
+    return (f"torch.profiler: {len(WINDOWS)} windows, "
+            f"{sum(w for _, w in WINDOWS)} with whole records, "
+            f"{sum(o is None for o, _ in WINDOWS)} without device time; records "
+            f"lost in every window of {LOST_RECORDS[0]} of {LOST_RECORDS[1]} "
+            f"profiled functions (their times take the mean a record); first "
+            f"device record less first host event: min {off[0]:.3f}, median "
+            f"{off[len(off) // 2]:.3f}, max {off[-1]:.3f} ms (windows padded by "
+            f"{PROFILE_PAD_S} s of host time at both ends)")
 
 
 def splat_bound(pts, ids, num_slots):
@@ -170,6 +243,18 @@ def splat_bound(pts, ids, num_slots):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = valid * C / F32_FLOPS * 1e3
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def points_per_run(ids, num_slots, tile=splat_cuda.TILE):
+    """In-grid points per distinct (tile, id) pair: how many points the
+    kernel's sort-and-reduce folds into one vector atomic, on average."""
+    B, P = ids.shape
+    valid = (ids >= 0) & (ids < num_slots)
+    tiles = torch.arange(P, device=ids.device) // tile
+    key = ((torch.arange(B, device=ids.device)[:, None] * -(-P // tile) + tiles)
+           * num_slots + ids.long())
+    n_valid = int(valid.sum())
+    return n_valid, torch.unique(key[valid]).numel()
 
 
 def check_splat(name, pts, ids, num_slots):
@@ -202,16 +287,36 @@ def check_splat(name, pts, ids, num_slots):
     rows = (rows + torch.arange(ids.shape[0], device=ids.device)[:, None] * (S + 1)).reshape(-1)
     src = pts.reshape(-1, pts.shape[-1]).float()
     buf = torch.zeros((ids.shape[0] * (S + 1), pts.shape[-1]), device=pts.device)
+    acc_shape = (ids.shape[0], S, pts.shape[-1])
+    wrapper = lambda: splat_cuda.splat_forward(pts, ids, num_slots)  # noqa: E731
     times = {
-        "ms": cuda_ms(lambda: splat_cuda.splat_forward(pts, ids, num_slots)),
+        "ms": cuda_ms(wrapper),
         "plain_ms": cuda_ms(lambda: splat_reference(pts, ids, num_slots)),
         "library_ms": cuda_ms(lambda: buf.index_add_(0, rows, src)),
     }
     times["bound_ms"], times["bound_by"] = splat_bound(pts, ids, num_slots)
+    fill_ms = cuda_ms(lambda: torch.zeros(acc_shape, device=pts.device))
+    extra = ""
+    if pts.dtype == torch.bfloat16:
+        acc = torch.zeros(acc_shape, device=pts.device)
+        extra = f", f32 -> bf16 cast {cuda_ms(lambda: acc.to(pts.dtype)):.4f} ms"
+    dev = device_profile(wrapper)
+    kernel_dev = sum(ms for key, (ms, _) in dev.items() if "splat_kernel" in key)
+    queued = queued_ms(wrapper)
+    n_valid, n_runs = points_per_run(ids, S)
     print(f"splat {name}: max_abs_err {max_err:.3e} (within the summation-order "
-          f"bound), kernel {times['ms']:.4f} ms, plain {times['plain_ms']:.4f} ms, "
-          f"index_add_ {times['library_ms']:.4f} ms, {times['bound_by']} bound "
-          f"{times['bound_ms']:.4f} ms", flush=True)
+          f"bound), wrapper {times['ms']:.4f} ms (zero fill + kernel"
+          f"{' + cast' if extra else ''}, CUDA events), plain "
+          f"{times['plain_ms']:.4f} ms, index_add_ {times['library_ms']:.4f} ms, "
+          f"{times['bound_by']} bound {times['bound_ms']:.4f} ms; alone: zero "
+          f"fill {fill_ms:.4f} ms{extra} (CUDA events), kernel "
+          f"{kernel_dev:.4f} ms device time (profiler; "
+          f"{sum(c for _, c in dev.values()):.0f} device activities a call), "
+          f"wrapper queued on the device {queued:.4f} ms; "
+          f"{n_valid} in-grid points in {n_runs} (tile, id) runs at tile "
+          f"{splat_cuda.TILE}: {n_valid / max(n_runs, 1):.2f} points a run, "
+          f"{n_runs * -(-pts.shape[-1] // 4)} vector atomics against "
+          f"{n_valid * pts.shape[-1]} scalar ones", flush=True)
     return max_err, times
 
 
@@ -390,7 +495,6 @@ def phase_serving(tmp, model, rng, device="cuda"):
 def _profile(fn, n: int, inference: bool):
     """(host wall ms per call with the profiler off, profiler over n
     calls, device busy ms per call, kernels sorted by device time)."""
-    from torch.profiler import ProfilerActivity, profile
     fn()  # warm: a changed TF32 setting picks new algorithms
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -398,12 +502,8 @@ def _profile(fn, n: int, inference: bool):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    mode = torch.inference_mode() if inference else torch.enable_grad()
-    with mode, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       record_shapes=True) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    with torch.inference_mode() if inference else torch.enable_grad():
+        prof = profile_window(fn, n, record_shapes=True)
     kernels = sorted(device_events(prof), key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     return wall_ms, prof, busy_ms, kernels
@@ -548,22 +648,32 @@ def check_dw(name, x, w, s, grads: bool):
             note += f", {what} {gerr / scale:.1e} of max"
     xp, wc = same_pad(x, k, s), w.to(x.dtype)
     kernel = lambda: mbconv_cuda.dw_conv_stats_forward(x, w, s)  # noqa: E731
+    dev = device_profile(kernel)
+    activities = sum(c for _, c in dev.values())
+    assert activities == 1, f"{name}: {dev} device activities a call, want 1"
+    plan = mbconv_cuda.plan_tiles(*x.shape, k, s)
     times = {
-        "ms": device_ms(kernel),
-        "plain_ms": device_ms(lambda: dw_conv_stats_reference(x, w, s)),
-        "library_ms": device_ms(lambda: F.conv2d(xp, wc, stride=s, groups=C)),
-        "conv_var_mean_ms": device_ms(lambda: torch.var_mean(
+        "ms": sum(ms for ms, _ in dev.values()),
+        "plain_ms": queued_ms(lambda: dw_conv_stats_reference(x, w, s)),
+        "library_ms": queued_ms(lambda: F.conv2d(xp, wc, stride=s, groups=C)),
+        "conv_var_mean_ms": queued_ms(lambda: torch.var_mean(
             F.conv2d(xp, wc, stride=s, groups=C).float(), dim=(0, 2, 3))),
         "call_ms": cuda_ms(kernel),
+        "queued_ms": queued_ms(kernel),
     }
     times["bound_ms"], times["bound_by"] = dw_bound(x, k, s)
     max_err = err.max().item()
     print(f"dw_conv_stats {name}: max |dy| {max_err:.3e} (within the "
-          f"summation-order bound), {note}; device ms: kernel {times['ms']:.4f}, "
-          f"plain {times['plain_ms']:.4f}, cuDNN conv {times['library_ms']:.4f}, "
-          f"cuDNN conv + var_mean {times['conv_var_mean_ms']:.4f}, "
-          f"{times['bound_by']} bound {times['bound_ms']:.4f}; wrapper call "
-          f"back to back {times['call_ms']:.4f} ms (CUDA events)", flush=True)
+          f"summation-order bound), {note}; tiles {plan.tiles} a channel (th "
+          f"{plan.th}, pb {plan.pb}, {plan.threads} threads, "
+          f"{plan.smem_bytes} B staged); {activities:.0f} device activity a "
+          f"call; device ms: kernel {times['ms']:.4f} (profiler; "
+          f"{100 * times['bound_ms'] / times['ms']:.1f}% of the "
+          f"{times['bound_by']} bound {times['bound_ms']:.4f}); queued back to "
+          f"back (CUDA events): kernel {times['queued_ms']:.4f}, plain "
+          f"{times['plain_ms']:.4f}, cuDNN conv {times['library_ms']:.4f}, "
+          f"cuDNN conv + var_mean {times['conv_var_mean_ms']:.4f}; wrapper "
+          f"calls back to back {times['call_ms']:.4f} ms (CUDA events)", flush=True)
     return max_err, times
 
 
@@ -571,7 +681,8 @@ def phase_dw(gen):
     """Phase 7. Returns (max |dy| over the f32 shapes, the f32 shapes'
     summed device times and bound: one train forward's 16 launches)."""
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-             "conv_var_mean_ms": 0.0, "call_ms": 0.0, "bound_ms": 0.0}
+             "conv_var_mean_ms": 0.0, "call_ms": 0.0, "queued_ms": 0.0,
+             "bound_ms": 0.0}
     max_err, by = 0.0, {}
     for block, k, s, shape in dw_shapes():
         for dtype in ((torch.float32, torch.bfloat16) if block in (0, 1, 11)
@@ -588,13 +699,16 @@ def phase_dw(gen):
                 by[t["bound_by"]] = by.get(t["bound_by"], 0) + 1
     bound_by = max(by, key=by.get)
     print(f"dw_conv_stats, the 16 f32 launches of one bsz-4 train forward, "
-          f"device ms: kernel {total['ms']:.4f}, plain {total['plain_ms']:.4f}, "
-          f"cuDNN conv {total['library_ms']:.4f}, cuDNN conv + var_mean "
-          f"{total['conv_var_mean_ms']:.4f}, bound {total['bound_ms']:.4f} "
-          f"({bound_by}; the kernel at {100 * total['bound_ms'] / total['ms']:.1f}% "
-          f"of it); wrapper calls back to back {total['call_ms']:.4f} ms", flush=True)
-    total.pop("conv_var_mean_ms")
-    total.pop("call_ms")
+          f"device ms: kernel {total['ms']:.4f} (profiler), bound "
+          f"{total['bound_ms']:.4f} ({bound_by}; the kernel at "
+          f"{100 * total['bound_ms'] / total['ms']:.1f}% of it); queued back to "
+          f"back (CUDA events): kernel {total['queued_ms']:.4f}, plain "
+          f"{total['plain_ms']:.4f}, cuDNN conv {total['library_ms']:.4f}, cuDNN "
+          f"conv + var_mean {total['conv_var_mean_ms']:.4f}; wrapper calls back "
+          f"to back {total['call_ms']:.4f} ms; {profiler_note()}",
+          flush=True)
+    for key in ("conv_var_mean_ms", "call_ms", "queued_ms"):
+        total.pop(key)
     return max_err, {**total, "bound_by": bound_by}
 
 
@@ -688,52 +802,124 @@ def zero_dropout(model):
 # card vs CPU, one B0 train step in f32, TF32 off. The loss and gradients
 # go through 16 depthwise kernels, cuDNN's and the CPU's conv algorithms
 # and the splat's atomic sums: LOSS_TOL relative for the loss, GRAD_TOL
-# relative (L2) for the global norm and for each parameter's gradient; a
-# gradient that is 0 up to rounding (a bias ahead of a train-mode BN) is
-# held instead to GRAD_ABS of the global norm. Adam's first step moves each
-# parameter by lr * g / (|g| + eps), g its gradient (clipped, plus weight
-# decay): the two updates may differ by lr |g_card - g_cpu| / (min |g| +
-# eps), plus rounding (1e-6 of |p|). Running stats: STATS_TOL relative plus
-# 1e-6 absolute (means near 0).
-LOSS_TOL, GRAD_TOL, GRAD_ABS, STATS_TOL = 1e-4, 1e-3, 1e-6, 1e-4
+# relative (L2) for the global norm and for the gradients of the
+# parameters after the model's last train-mode BN (the BEV head's 1x1
+# conv), BN_GRAD_TOL for every other parameter's; a gradient that is 0 up
+# to rounding (a bias ahead of a train-mode BN) is held instead to GRAD_ABS
+# of the global norm. Those other gradients come back through train-mode
+# BNs, whose backward subtracts the batch means of dy and dy * xhat: the
+# cancellation magnifies f32 rounding. Over the twelve seeds of
+# card_cpu_spread.py (PERF.md, PR 3), such a gradient moves by up to
+# 1.71e-2 relative when the CPU step alone has its depthwise moments
+# nudged by one ulp, and misses the CPU by up to 1.33e-2 on the card
+# through the kernels' plain versions, which launch no kernel;
+# BN_GRAD_TOL is fixed above both. One seed's batch sits on a flip, where
+# a one-ulp nudge moves the CPU step by 8.2e-2 (1.2e-3 in the global
+# norm): no fixed limit on one step holds on such a batch, and phase 9's
+# batch is not one (it prints its readings beside the check). Adam's
+# first step moves each parameter by lr * g / (|g| + eps), g its gradient
+# (clipped, plus weight decay): the two updates may differ by
+# lr |g_card - g_cpu| / (min |g| + eps), plus rounding (1e-6 of |p|).
+# Running stats: STATS_TOL relative plus 1e-6 absolute (means near 0).
+LOSS_TOL, GRAD_TOL, BN_GRAD_TOL, GRAD_ABS, STATS_TOL = 1e-4, 1e-3, 2e-2, 1e-6, 1e-4
+AFTER_LAST_BN = "bevencode.up2.4."
 
 
-def phase_card_vs_cpu(root, seed):
-    """Phase 9."""
+class plain_versions:
+    """Within ``with plain_versions(True):`` the two kernels' wrappers run
+    their plain versions on the card (phase 9's reading only)."""
+
+    def __init__(self, on: bool):
+        self.on = on
+
+    def __enter__(self):
+        if self.on:
+            self.saved = splat_cuda.splat_forward, mbconv_cuda.dw_conv_stats_forward
+            splat_cuda.splat_forward = splat_reference
+            mbconv_cuda.dw_conv_stats_forward = dw_conv_stats_reference
+
+    def __exit__(self, *exc):
+        if self.on:
+            splat_cuda.splat_forward, mbconv_cuda.dw_conv_stats_forward = self.saved
+
+
+def card_cpu_steps(root, seed):
+    """One B0 train step (bsz 2, fused_dw, dropout 0, seeded weights) on
+    the first validation batch of the fixture at ``root``, three times:
+    on the CPU (the plain versions), on the card (the kernels) and on the
+    card with the kernels' plain versions. Returns ({path: model}, {path:
+    step metrics}, the parameters before the step, the batch)."""
     cpu = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
                         fused_dw=True, device="cpu",
                         generator=torch.Generator().manual_seed(seed))
     zero_dropout(cpu)
-    card = copy.deepcopy(cpu).cuda()
+    models = {"cpu": cpu, "card": copy.deepcopy(cpu).cuda(),
+              "card, plain versions": copy.deepcopy(cpu).cuda()}
     _, valloader = compile_data("unused", root, DataAugConf(), GridConf(), bsz=2,
                                 nworkers=2, dataset_kwargs={"device_normalize": True})
     batch = next(iter(valloader))[:7]
     before = {k: v.detach().clone() for k, v in cpu.named_parameters()}
-    states, metrics = {}, {}
-    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, "cuda")):
-        states[name] = create_train_state(model)
-        launches = mbconv_cuda.launches
-        metrics[name] = make_train_step(model, 2.13, device=dev)(states[name], batch)
-        if dev == "cuda":
-            assert mbconv_cuda.launches == launches + DW_PER_FORWARD, \
-                "the card's step missed the kernel"
-    torch.cuda.synchronize()
+    metrics = {}
+    for name, model in models.items():
+        dev = "cpu" if name == "cpu" else "cuda"
+        plain = name.endswith("plain versions")
+        launches = mbconv_cuda.launches, splat_cuda.launches
+        with plain_versions(plain):
+            metrics[name] = make_train_step(model, 2.13, device=dev)(
+                create_train_state(model), batch)
+        torch.cuda.synchronize()
+        ran = mbconv_cuda.launches - launches[0], splat_cuda.launches - launches[1]
+        if name == "card":
+            assert ran == (DW_PER_FORWARD, 1), f"the card's step launched {ran}"
+        elif plain:
+            assert ran == (0, 0), f"the plain-versions step launched {ran}"
+    return models, metrics, before, batch
+
+
+def grad_misses(card, cpu) -> dict:
+    """{parameter: (|g_card - g_cpu|, |g_cpu|)} (L2)."""
+    cards = dict(card.named_parameters())
+    return {k: ((cards[k].grad.cpu() - p.grad).norm().item(), p.grad.norm().item())
+            for k, p in cpu.named_parameters()}
+
+
+def grad_limit(name: str) -> float:
+    """The relative L2 limit of a parameter's gradient, card vs CPU."""
+    return GRAD_TOL if name.startswith(AFTER_LAST_BN) else BN_GRAD_TOL
+
+
+def phase_card_vs_cpu(root, seed):
+    """Phase 9."""
+    models, metrics, before, _ = card_cpu_steps(root, seed)
+    cpu, card = models["cpu"], models["card"]
+    nc = float(metrics["cpu"]["grad_norm"])
+    misses = {name: grad_misses(models[name], cpu)
+              for name in ("card", "card, plain versions")}
+    print("card vs CPU, parameters whose gradient misses GRAD_TOL relative "
+          "and GRAD_ABS of the global norm (name: |g_card - g_cpu| / |g_cpu|): "
+          + "; ".join(f"{name}: " + (", ".join(
+              f"{k} {d / r:.2e}" for k, (d, r) in sorted(m.items())
+              if d > GRAD_TOL * r and d > GRAD_ABS * nc) or "none")
+              for name, m in misses.items()), flush=True)
     lc, lg = float(metrics["cpu"]["loss"]), float(metrics["card"]["loss"])
     assert math.isfinite(lg) and abs(lg - lc) <= LOSS_TOL * max(1.0, abs(lc)), (lg, lc)
-    nc, ng = float(metrics["cpu"]["grad_norm"]), float(metrics["card"]["grad_norm"])
+    ng = float(metrics["card"]["grad_norm"])
     assert abs(ng - nc) <= GRAD_TOL * nc, (ng, nc)
     lr, wd, eps = 1e-3, 1e-7, 1e-8
-    worst_g = worst_p = 0.0
-    n_abs = flipped = 0
+    worst_p = 0.0
+    worst_g = {GRAD_TOL: (0.0, ""), BN_GRAD_TOL: (0.0, "")}
+    n_abs = n_bn_tol = flipped = 0
     gpu_params = dict(card.named_parameters())
     for k, pc in cpu.named_parameters():
         pg = gpu_params[k].detach().cpu()
         gc, gg = pc.grad, gpu_params[k].grad.cpu()
-        diff, ref = (gg - gc).norm().item(), gc.norm().item()
-        if diff <= GRAD_TOL * ref:
-            worst_g = max(worst_g, diff / ref if ref else 0.0)
+        diff, ref = misses["card"][k]
+        tol = grad_limit(k)
+        if diff <= tol * ref:
+            worst_g[tol] = max(worst_g[tol], (diff / ref if ref else 0.0, k))
+            n_bn_tol += int(diff > GRAD_TOL * ref)
         else:
-            assert diff <= GRAD_ABS * nc, (k, diff, ref)
+            assert diff <= GRAD_ABS * nc, (k, diff, ref, tol)
             n_abs += 1
         p0 = before[k]
         ec, eg = gc + wd * p0, gg + wd * p0
@@ -757,9 +943,13 @@ def phase_card_vs_cpu(root, seed):
           f"the card, the plain version on the CPU; dropout 0; f32, TF32 off): "
           f"loss {lg:.6f} vs {lc:.6f}, grad global norm {ng:.6f} vs {nc:.6f} "
           f"(relative {abs(ng - nc) / nc:.2e}; clipped at 5.0); parameter "
-          f"gradients: {n_par - n_abs} of {n_par} within {GRAD_TOL} relative L2 "
-          f"(worst {worst_g:.2e}), {n_abs} zero up to rounding, within "
-          f"{GRAD_ABS} of the global norm; parameters after Adam within the "
+          f"gradients: {n_par - n_abs} of {n_par} within their relative L2 "
+          f"limit ({GRAD_TOL} after the last BN, worst "
+          f"{worst_g[GRAD_TOL][0]:.2e} at {worst_g[GRAD_TOL][1]}; "
+          f"{BN_GRAD_TOL} through BN, worst {worst_g[BN_GRAD_TOL][0]:.2e} at "
+          f"{worst_g[BN_GRAD_TOL][1]}, {n_bn_tol} above {GRAD_TOL}), {n_abs} "
+          f"zero up to rounding, within {GRAD_ABS} of the global norm; "
+          f"parameters after Adam within the "
           f"stated bound (at most {worst_p:.2f} of it; {flipped} entries moved "
           f"in opposite directions, as the bound allows near g = 0); {n_bn} BN "
           f"running "
@@ -835,6 +1025,23 @@ def phase_train_times(card, rng, seed, loop_step_ms):
     torch.backends.cudnn.allow_tf32 = False
 
 
+def main_path_splat(model, many):
+    """Phase 2 on the main path's own inputs: the lift and geometry the
+    bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
+    with torch.inference_mode():
+        t = [torch.as_tensor(a).cuda() for a in many]
+        geom = model.get_geometry(*t[1:])
+        feats = model.get_cam_feats(t[0])
+        ids, _ = voxel_indices(geom, model.dx, model.bx, model.nx)
+        pts = feats.reshape(8, -1, model.camC).contiguous()
+        ids = ids.reshape(8, -1).contiguous()
+    S = int(np.prod(model.nx))
+    assert pts.shape == (8, 6 * 41 * 8 * 22, 64), pts.shape
+    print(f"main-path splat inputs: {float((ids == S).float().mean()):.3f} of "
+          f"points at the sentinel", flush=True)
+    return check_splat("main path f32 S=40000", pts, ids, S)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -858,7 +1065,9 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source, at once
         built = list(pool.map(lambda lib: lib.build(), libs))
     for lib, path in zip(libs, built):
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln]
+        ptxas = [ln.strip().replace("ptxas info    : ", "")
+                 for ln in lib.build_log.splitlines()
+                 if "registers" in ln or "spill stores" in ln]
         print(f"build: {lib.source.name} -> {path.name}; "
               f"{' | '.join(ptxas) or 'cached'}", flush=True)
     print(f"build: both kernels in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -878,20 +1087,7 @@ def main(argv=None) -> int:
     model = model.eval().cuda()
     with tempfile.TemporaryDirectory() as tmp:
         path1, path8, launches, many = phase_serving(tmp, model, rng)
-
-        # the kernel on the main path's own inputs: the lift and geometry
-        # the bsz-8 served batch gives it
-        with torch.inference_mode():
-            t = [torch.as_tensor(a).cuda() for a in many]
-            geom = model.get_geometry(*t[1:])
-            feats = model.get_cam_feats(t[0])
-            ids, _ = voxel_indices(geom, model.dx, model.bx, model.nx)
-            pts = feats.reshape(8, -1, model.camC).contiguous()
-            ids = ids.reshape(8, -1).contiguous()
-        assert pts.shape == (B, P, C), pts.shape
-        print(f"main-path splat inputs: {float((ids == S).float().mean()):.3f} of "
-              f"points at the sentinel", flush=True)
-        max_err, times = check_splat("main path f32 S=40000", pts, ids, S)
+        max_err, times = main_path_splat(model, many)
 
         # 4. card against CPU, TF32 off
         one = inputs(rng, 1, uint8=True)
@@ -944,6 +1140,7 @@ def main(argv=None) -> int:
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training; dw_conv_stats {dw_launches} training", flush=True)
+    print(f"over the run: {profiler_note()}", flush=True)
     kernels = [{"name": "splat", "route": "cuda",
                 "source": "lss_carla_torch/csrc/splat.cu",
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
@@ -953,8 +1150,8 @@ def main(argv=None) -> int:
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
                 "launches": dw_launches, "max_abs_err": dw_err, **dw_times}]
-    print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,9 @@ and ``splat_forward()`` do. ``splat_forward`` takes CUDA tensors only: a
 CPU tensor goes to the plain version (``ops/splat.py::splat_reference``)
 in the caller, never here.
 
+The wrapper zero-fills the f32 accumulator on the stream, launches the
+kernel once, and for bf16 features rounds the accumulator to bf16.
+
 ``launches`` counts the kernel launches of this process; ``chip_smoke.py``
 sets it to 0 before it drives the main path and reads it after.
 """
@@ -23,6 +26,8 @@ import torch
 from lss_carla_torch.ops._nvcc import NvccLibrary
 
 launches = 0          # kernel launches in this process (plain int)
+
+TILE = 176            # consecutive points a block sorts and reduces (kTile)
 
 
 def _declare(lib: ctypes.CDLL) -> None:

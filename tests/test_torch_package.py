@@ -22,15 +22,17 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_import_pulls_in_no_jax():
-    """Every module of the port, and chip_smoke.py's imports, in a fresh
-    interpreter: neither jax nor flax nor lss_carla_tpu gets loaded."""
+    """Every module of the port, and the imports of chip_smoke.py and the
+    other card scripts beside it, in a fresh interpreter: neither jax nor
+    flax nor lss_carla_tpu gets loaded."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in (REPO / "lss_carla_torch").rglob("*.py"))
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "importlib.import_module('chip_smoke')\n"
+        "for m in ('chip_smoke', 'kernel_compare', 'card_cpu_spread'):\n"
+        "    importlib.import_module(m)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0]"
         " in ('jax', 'jaxlib', 'flax', 'lss_carla_tpu'))))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

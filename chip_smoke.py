@@ -31,9 +31,10 @@ exits non-zero without the final result line:
    (torch.profiler): a reading for PERF.md, not a check;
 7. the depthwise-conv + BN-moments kernel against its plain version
    (``dw_conv_stats_reference``) at the 16 depthwise shapes of the B0
-   trunk at N 24 (bsz 4 x 6 cameras) in f32, and blocks 0, 1 and 11 in
-   bf16: y, sum and sum of squares within a summation-order bound, and dx,
-   dw through the autograd Function against the plain version's autograd.
+   trunk at N 24 (bsz 4 x 6 cameras) in f32, and block 0 in bf16 (phase
+   11 holds bf16 at B4's shapes): y, sum and sum of squares within a
+   summation-order bound, and dx, dw through the autograd Function
+   against the plain version's autograd.
    The kernel's device time (torch.profiler) stands beside the byte
    bound; the device time of the kernel, the plain version, cuDNN's
    depthwise conv alone (the nearest library call) and cuDNN's conv plus a
@@ -55,7 +56,31 @@ exits non-zero without the final result line:
 10. train-step times (``train_step_ms_bsz8`` and bsz 4, ``fused_dw`` off
     and on, cuDNN TF32 off and on), the device idle share of phase 8's
     loop, and a torch.profiler breakdown of one bsz-4 train step with
-    ``fused_dw`` off and on.
+    ``fused_dw`` off and on;
+11. both kernels in bf16 at the stretch recipe's shapes
+    (``configs/simbev_stretch.sh``: B4, a 400 x 400 grid at 0.25 m): the
+    splat on the B4 model's own lift and ids at bsz 4 (S 160,000), and the
+    depthwise kernel at each distinct shape of B4's 32 depthwise convs at
+    N 24 (y, sum, sum of squares; dx, dw through the autograd Function),
+    each against its plain version and timed beside its bound and the
+    library call;
+12. the stretch recipe through ``train()``: B4, 400 x 400, 4 classes,
+    bf16, ``fused_dw``, cosine with warm-up, EMA 0.999 with BN
+    recalibration, two microbatches of bsz 4 a step, on a synthetic
+    fixture with 400 x 400 labels: the kernels' launch counters by dtype,
+    zeroed just before, show only bf16 launches, 32 depthwise launches a
+    train-mode forward (the recalibration's included) and the splat;
+    losses finite, ``val/iou`` and ``val/iou_raw`` logged, checkpoints
+    carry ``ema_state_dict``, a resume continues at the saved counter, and
+    ``model_best.pt`` exported with ``--ema --compute_dtype bfloat16``
+    answers one HTTP request with finite f32 logits;
+13. bf16 against f32 on the card: the stretch model's bsz-1 logits in
+    bf16 against the same weights in f32 (TF32 off) over several seeds,
+    held to a limit fixed from those readings; bsz-1 forward latency;
+    the bsz-4 B4 stretch step and the bsz-4 B0 default step in bf16,
+    timed in turns against f32 with cuDNN TF32; the device idle share of
+    phase 12's loop and a profile of the recipe's bf16 step (two
+    microbatches), with the BEV ``up2`` conv's device time and launches.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -96,6 +121,7 @@ from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
 from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
+from lss_carla_torch.serving import _main as export_cli
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.training.state import create_train_state
 from lss_carla_torch.training.step import make_train_step
@@ -112,6 +138,11 @@ SERVE_TOL = 1e-4           # x max(1, max |logit|), absolute
 # card vs CPU, both f32 with TF32 off: conv algorithms and the splat sum in
 # different orders over a 16-block trunk and an 11-conv BEV encoder
 CPU_TOL = 1e-3             # x max(1, max |logit|), absolute
+
+
+def reset_launches() -> None:
+    splat_cuda.reset_launches()
+    mbconv_cuda.reset_launches()
 
 
 def card_line() -> str:
@@ -183,7 +214,7 @@ def clock_offset_ms(prof):
     return None
 
 
-def device_profile(fn, n: int = 20, windows: int = 5) -> dict:
+def device_profile(fn, n: int = 20, windows: int = 5):
     """{device activity name: (device ms per call, activities per call)}
     of everything ``fn`` puts on the card (torch.profiler, over n calls
     after a warm-up). Unlike ``cuda_ms`` it leaves out the host's time to
@@ -192,7 +223,9 @@ def device_profile(fn, n: int = 20, windows: int = 5) -> dict:
     is not a multiple of n) or none is profiled again, up to ``windows`` in
     all. Where records were lost in all of them, the last window's mean
     time a record stands for each lost one; LOST_RECORDS counts such
-    calls."""
+    calls. None where no window saw device time (seen on that host after
+    the phase-10 profiles): the caller's CUDA-event reading stands in and
+    LOST_RECORDS counts it."""
     LOST_RECORDS[1] += 1
     for _ in range(3):
         fn()
@@ -211,13 +244,13 @@ def device_profile(fn, n: int = 20, windows: int = 5) -> dict:
         WINDOWS.append((clock_offset_ms(prof), whole))
         if whole:
             return out
-    if out is None:
-        raise RuntimeError(f"the profiler saw no device time in {windows} windows")
-    LOST_RECORDS[0] += 1
+    LOST_RECORDS[0 if out is not None else 2] += 1
     return out
 
 
-LOST_RECORDS = [0, 0]  # device_profile calls: with records lost in all windows, in all
+# device_profile calls: with records lost in all windows, in all, with no
+# device time in any window
+LOST_RECORDS = [0, 0, 0]
 
 
 def profiler_note() -> str:
@@ -227,7 +260,9 @@ def profiler_note() -> str:
             f"{sum(w for _, w in WINDOWS)} with whole records, "
             f"{sum(o is None for o, _ in WINDOWS)} without device time; records "
             f"lost in every window of {LOST_RECORDS[0]} of {LOST_RECORDS[1]} "
-            f"profiled functions (their times take the mean a record); first "
+            f"profiled functions (their times take the mean a record), no "
+            f"device time in any window of {LOST_RECORDS[2]} (CUDA events "
+            f"stand in); first "
             f"device record less first host event: min {off[0]:.3f}, median "
             f"{off[len(off) // 2]:.3f}, max {off[-1]:.3f} ms (windows padded by "
             f"{PROFILE_PAD_S} s of host time at both ends)")
@@ -300,7 +335,7 @@ def check_splat(name, pts, ids, num_slots):
     if pts.dtype == torch.bfloat16:
         acc = torch.zeros(acc_shape, device=pts.device)
         extra = f", f32 -> bf16 cast {cuda_ms(lambda: acc.to(pts.dtype)):.4f} ms"
-    dev = device_profile(wrapper)
+    dev = device_profile(wrapper) or {}
     kernel_dev = sum(ms for key, (ms, _) in dev.items() if "splat_kernel" in key)
     queued = queued_ms(wrapper)
     n_valid, n_runs = points_per_run(ids, S)
@@ -310,9 +345,11 @@ def check_splat(name, pts, ids, num_slots):
           f"{times['plain_ms']:.4f} ms, index_add_ {times['library_ms']:.4f} ms, "
           f"{times['bound_by']} bound {times['bound_ms']:.4f} ms; alone: zero "
           f"fill {fill_ms:.4f} ms{extra} (CUDA events), kernel "
-          f"{kernel_dev:.4f} ms device time (profiler; "
-          f"{sum(c for _, c in dev.values()):.0f} device activities a call), "
-          f"wrapper queued on the device {queued:.4f} ms; "
+          + (f"{kernel_dev:.4f} ms device time (profiler; "
+             f"{sum(c for _, c in dev.values()):.0f} device activities a call)"
+             if dev else "device time not measured (no profiler window saw "
+             "a device record)")
+          + f", wrapper queued on the device {queued:.4f} ms; "
           f"{n_valid} in-grid points in {n_runs} (tile, id) runs at tile "
           f"{splat_cuda.TILE}: {n_valid / max(n_runs, 1):.2f} points a run, "
           f"{n_runs * -(-pts.shape[-1] // 4)} vector atomics against "
@@ -434,7 +471,7 @@ def phase_serving(tmp, model, rng, device="cuda"):
     multi = inputs(rng, 3, True, fd)
     responses = {}
 
-    splat_cuda.launches = 0  # the main path starts here
+    splat_cuda.reset_launches()  # the main path starts here
     with Running(serve(path1, port=0, warmup_args=single[0], device=device)) as base:
         assert get(base, "/healthz")[0] == 200
         responses["single"] = [post(base, a) for a in single]
@@ -553,10 +590,15 @@ def profile_train_step(fn, n: int, up2_shape) -> tuple:
         wall_ms, prof, busy_ms, kernels = _profile(fn, n, inference=False)
         if busy_ms <= 0:
             return None, "not measured (the profiler saw no device time)"
-        up2 = [e for e in prof.key_averages(group_by_input_shape=True)
-               if e.key == "aten::convolution_backward"
-               and list(up2_shape) in [list(s) for s in e.input_shapes if s]]
+        by_shape = prof.key_averages(group_by_input_shape=True)
+
+        def on_up2(key):
+            return [e for e in by_shape if e.key == key and list(up2_shape)
+                    in [list(s) for s in e.input_shapes if s]]
+        up2 = on_up2("aten::convolution_backward")
         up2_ms = sum(e.device_time_total for e in up2) / 1e3 / n
+        fwd = on_up2("aten::cudnn_convolution")
+        fwd_ms = sum(e.device_time_total for e in fwd) / 1e3 / n
         return busy_ms, (
             f"wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
             f"{max(0.0, 1 - busy_ms / wall_ms):.3f}, device activities (kernels, "
@@ -566,7 +608,8 @@ def profile_train_step(fn, n: int, up2_shape) -> tuple:
             f"kernel {_share(kernels, 'splat_kernel', n, busy_ms)}, BEV up2 "
             f"conv backward (input {tuple(up2_shape)}) {up2_ms:.3f} ms "
             f"({100 * up2_ms / busy_ms:.2f}% of busy, {sum(e.count for e in up2) // n}"
-            f" calls); {_top(prof, kernels, n, k=8)}")
+            f" calls), forward {fwd_ms:.3f} ms ({sum(e.count for e in fwd) // n} "
+            f"calls); {_top(prof, kernels, n, k=8)}")
     except Exception as e:  # the profiler is a reading, not a check
         return None, f"not measured ({type(e).__name__}: {e})"
 
@@ -606,7 +649,10 @@ def check_dw(name, x, w, s, grads: bool):
     n = N Ho Wo f32 values (squares) in other orders: 2 n u sum|y| (sum
     y^2). The backward runs the same cuDNN transposes on both sides and
     differs only through y in the 2 y dsumsq term: 1e-4 of the largest
-    entry of dx and of dw."""
+    entry of dx and of dw. In bf16 both sides run the Function's bf16
+    backward, one after the kernel's forward and one after the plain
+    version's (``plain_versions``); a y one bf16 ulp apart can flip the
+    bf16 rounding of dy + 2 y dsumsq: 2^-7 of the largest entry."""
     k, C = w.shape[-1], x.shape[1]
     y, s1, s2 = mbconv_cuda.dw_conv_stats_forward(x, w, s)
     ry, r1, r2 = dw_conv_stats_reference(x, w, s)
@@ -634,26 +680,31 @@ def check_dw(name, x, w, s, grads: bool):
     rel_s = ((s1 - r1).abs() / r1.abs().clamp(min=1e-6)).max().item()
     note = f"sum rel err {rel_s:.2e}"
     if grads:
+        f32 = x.dtype == torch.float32
         r = torch.randn(y.shape, device=x.device, dtype=torch.float32)
         got, want = [], []
-        for fn, out in ((dw_conv_stats, got), (dw_conv_stats_reference, want)):
+        for plain, out in ((False, got), (True, want)):
             xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
-            ya, sa, ssa = fn(xa, wa, s)
-            ((ya.float() * r).sum() + 0.3 * sa.sum() + 1e-3 * ssa.sum()).backward()
+            fn = dw_conv_stats_reference if plain and f32 else dw_conv_stats
+            with plain_versions(plain and not f32):
+                ya, sa, ssa = fn(xa, wa, s)
+                ((ya.float() * r).sum() + 0.3 * sa.sum() + 1e-3 * ssa.sum()).backward()
             out += [xa.grad, wa.grad]
         for g, ref, what in zip(got, want, ("dx", "dw")):
-            gerr = (g - ref).abs().max().item()
-            scale = ref.abs().max().item()
-            assert gerr <= 1e-4 * scale, f"{name}: {what} off by {gerr} (scale {scale})"
+            assert g.dtype == ref.dtype, (what, g.dtype, ref.dtype)
+            gerr = (g.float() - ref.float()).abs().max().item()
+            scale = ref.float().abs().max().item()
+            limit = 1e-4 if f32 else 2.0 ** -7
+            assert gerr <= limit * scale, f"{name}: {what} off by {gerr} (scale {scale})"
             note += f", {what} {gerr / scale:.1e} of max"
     xp, wc = same_pad(x, k, s), w.to(x.dtype)
     kernel = lambda: mbconv_cuda.dw_conv_stats_forward(x, w, s)  # noqa: E731
     dev = device_profile(kernel)
-    activities = sum(c for _, c in dev.values())
-    assert activities == 1, f"{name}: {dev} device activities a call, want 1"
+    if dev is not None:
+        activities = sum(c for _, c in dev.values())
+        assert activities == 1, f"{name}: {dev} device activities a call, want 1"
     plan = mbconv_cuda.plan_tiles(*x.shape, k, s)
     times = {
-        "ms": sum(ms for ms, _ in dev.values()),
         "plain_ms": queued_ms(lambda: dw_conv_stats_reference(x, w, s)),
         "library_ms": queued_ms(lambda: F.conv2d(xp, wc, stride=s, groups=C)),
         "conv_var_mean_ms": queued_ms(lambda: torch.var_mean(
@@ -661,14 +712,19 @@ def check_dw(name, x, w, s, grads: bool):
         "call_ms": cuda_ms(kernel),
         "queued_ms": queued_ms(kernel),
     }
+    times["ms"] = (sum(ms for ms, _ in dev.values()) if dev is not None
+                   else times["queued_ms"])
     times["bound_ms"], times["bound_by"] = dw_bound(x, k, s)
     max_err = err.max().item()
     print(f"dw_conv_stats {name}: max |dy| {max_err:.3e} (within the "
           f"summation-order bound), {note}; tiles {plan.tiles} a channel (th "
           f"{plan.th}, pb {plan.pb}, {plan.threads} threads, "
-          f"{plan.smem_bytes} B staged); {activities:.0f} device activity a "
-          f"call; device ms: kernel {times['ms']:.4f} (profiler; "
-          f"{100 * times['bound_ms'] / times['ms']:.1f}% of the "
+          f"{plan.smem_bytes} B staged); "
+          + ("1 device activity a call; device ms: kernel "
+             f"{times['ms']:.4f} (profiler; " if dev is not None else
+             "no profiler window saw a device record; device ms: kernel "
+             f"{times['ms']:.4f} (queued, CUDA events; ")
+          + f"{100 * times['bound_ms'] / times['ms']:.1f}% of the "
           f"{times['bound_by']} bound {times['bound_ms']:.4f}); queued back to "
           f"back (CUDA events): kernel {times['queued_ms']:.4f}, plain "
           f"{times['plain_ms']:.4f}, cuDNN conv {times['library_ms']:.4f}, "
@@ -685,7 +741,7 @@ def phase_dw(gen):
              "bound_ms": 0.0}
     max_err, by = 0.0, {}
     for block, k, s, shape in dw_shapes():
-        for dtype in ((torch.float32, torch.bfloat16) if block in (0, 1, 11)
+        for dtype in ((torch.float32, torch.bfloat16) if block == 0
                       else (torch.float32,)):
             x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
             w = 0.3 * torch.randn(shape[1], 1, k, k, generator=gen, device="cuda")
@@ -735,7 +791,7 @@ def phase_training(tmp, seed):
     kw = dict(dataroot=str(root), nepochs=2, bsz=4, nworkers=6, fused_dw=True,
               val_step=10, save_step=10, iou_log_step=10, seed=seed,
               device="cuda")
-    mbconv_cuda.launches = splat_cuda.launches = 0  # the main path starts here
+    reset_launches()  # the main path starts here
     t0 = time.perf_counter()
     result = train(**kw, max_steps=TRAIN_STEPS, logdir=run)
     dw_launches, splat_launches = mbconv_cuda.launches, splat_cuda.launches
@@ -957,20 +1013,25 @@ def phase_card_vs_cpu(root, seed):
           f"it)", flush=True)
 
 
-def random_batch(rng, B):
+def random_batch(rng, B, grid: int = 200, outC: int = 1):
     """A train batch on the card: uint8 images, the rig, sparse labels."""
     args = inputs(rng, B, uint8=True)
-    binimg = (rng.uniform(size=(B, 1, 200, 200)) < 0.02).astype(np.float32)
+    binimg = (rng.uniform(size=(B, outC, grid, grid)) < 0.02).astype(np.float32)
     return tuple(torch.as_tensor(a).cuda() for a in (*args, binimg))
 
 
-def train_step_fn(fused: bool, seed: int, batch):
-    """One train step of a fresh B0 model (seeded weights) on ``batch``."""
-    model = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+def train_step_fn(fused: bool, seed: int, batch, accum_steps: int = 1,
+                  grid_conf=None, **model_kw):
+    """One train step of a fresh model (seeded weights; B0 at the default
+    config unless ``model_kw`` and ``grid_conf`` say otherwise) on
+    ``batch``."""
+    model_kw = {"outC": 1, "variant": "b0", **model_kw}
+    model = compile_model(grid_conf or GridConf(), DataAugConf(),
                           fused_dw=fused, device="cuda",
-                          generator=torch.Generator().manual_seed(seed))
+                          generator=torch.Generator().manual_seed(seed),
+                          **model_kw)
     state = create_train_state(model)
-    step = make_train_step(model, 2.13, device="cuda")
+    step = make_train_step(model, 2.13, accum_steps=accum_steps, device="cuda")
     return lambda: step(state, batch)
 
 
@@ -993,14 +1054,16 @@ def phase_train_times(card, rng, seed, loop_step_ms):
             windows, allocs = {False: [], True: []}, {False: 0, True: 0}
             for fused in (False, True, True, False):
                 before = device_allocs()
-                windows[fused].append(cuda_ms(steps[fused], iters=10, warmup=3))
+                # TF32 off, a bsz-4 step is ~0.4-0.6 s: windows of 5
+                n = 10 if tf32 or B == 8 else 5
+                windows[fused].append(cuda_ms(steps[fused], iters=n, warmup=2))
                 allocs[fused] += device_allocs() - before
             for fused in (False, True):
                 w = windows[fused]
                 print(f"times on {card}: {name} {sum(w) / len(w):.3f} (fused_dw "
                       f"{'on' if fused else 'off'}, cudnn TF32 "
                       f"{'on' if tf32 else 'off'}; CUDA events, two windows of "
-                      f"10 steps after 3, timed in turns off/on/on/off: "
+                      f"{n} steps after 2, timed in turns off/on/on/off: "
                       f"{w[0]:.3f}, {w[1]:.3f}; {allocs[fused]} cudaMalloc calls "
                       f"in them; inputs on the card)", flush=True)
         if B == 4:
@@ -1008,7 +1071,10 @@ def phase_train_times(card, rng, seed, loop_step_ms):
             # time); TF32 off for the fused step only, as phase 8 ran it
             for fused, tf32 in ((False, True), (True, False), (True, True)):
                 torch.backends.cudnn.allow_tf32 = tf32
-                busy, text = profile_train_step(steps[fused], 3, (B, 256, 200, 200))
+                # TF32 off: one step of ~36,000 device activities is enough
+                # (the profiler's post-processing grows with them)
+                busy, text = profile_train_step(steps[fused], 3 if tf32 else 1,
+                                                (B, 256, 200, 200))
                 print(f"profile bsz-4 train step, fused_dw "
                       f"{'on' if fused else 'off'}, cudnn TF32 "
                       f"{'on' if tf32 else 'off'}: {text}", flush=True)
@@ -1023,6 +1089,258 @@ def phase_train_times(card, rng, seed, loop_step_ms):
         del steps
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
+
+
+# --- phases 11-13: the stretch recipe in bf16 ---------------------------
+
+# configs/simbev_stretch.sh on one card: B4, a 400 x 400 grid at 0.25 m,
+# 4 classes (drivable + 3 vehicle classes), bf16
+STRETCH_GRID = GridConf(xbound=(-50.0, 50.0, 0.25), ybound=(-50.0, 50.0, 0.25))
+STRETCH_S = 400 * 400
+STRETCH_CLASSES = 4
+DW_B4 = len(block_plan("b4"))  # one depthwise launch a block: 32
+
+
+def stretch_model(seed: int, compute_dtype: str = "bfloat16",
+                  fused_dw: bool = True, state_dict=None):
+    """The stretch LSS on the card: seeded weights and BN statistics, or
+    ``state_dict``'s."""
+    gen = torch.Generator().manual_seed(seed)
+    model = compile_model(STRETCH_GRID, DataAugConf(), outC=STRETCH_CLASSES,
+                          variant="b4", fused_dw=fused_dw,
+                          compute_dtype=compute_dtype, device="cpu",
+                          generator=gen)
+    if state_dict is None:
+        randomize_bn(model, gen)
+    else:
+        model.load_state_dict(state_dict)
+    return model.cuda()
+
+
+def b4_dw_shapes(N: int = 24, H: int = 64, W: int = 176):
+    """[(k, s, (N, C, H, W), blocks)] of the B4 trunk's depthwise convs,
+    one entry a distinct shape, from the stem's output (6 cameras at
+    128 x 352 -> 64 x 176)."""
+    shapes = {}
+    for i, a in enumerate(block_plan("b4")):
+        key = (a["kernel"], a["stride"], (N, a["cin"] * a["expand"], H, W))
+        shapes.setdefault(key, []).append(i)
+        H, W = -(-H // a["stride"]), -(-W // a["stride"])
+    return [(*key, blocks) for key, blocks in shapes.items()]
+
+
+def phase_stretch_kernels(gen, seed):
+    """Phase 11. Returns {kernel name: (max error, times)}, the depthwise
+    times summed over one bsz-4 train forward's 32 launches."""
+    model = stretch_model(seed).eval()
+    many = inputs(np.random.default_rng(seed), 4, uint8=True)
+    with torch.inference_mode():
+        t = [torch.as_tensor(a).cuda() for a in many]
+        geom = model.get_geometry(*t[1:])
+        feats = model.get_cam_feats(t[0])
+        ids, _ = voxel_indices(geom, model.dx, model.bx, model.nx)
+        pts = feats.reshape(4, -1, model.camC).contiguous()
+        ids = ids.reshape(4, -1).contiguous()
+    del model
+    assert pts.dtype == torch.bfloat16 and pts.shape == (4, 6 * 41 * 8 * 22, 64)
+    print(f"stretch splat inputs (B4 bf16 lift, bsz 4): "
+          f"{float((ids == STRETCH_S).float().mean()):.3f} of points at the "
+          f"sentinel", flush=True)
+    out = {"splat": check_splat("stretch bf16 S=160000 bsz 4", pts, ids,
+                                STRETCH_S)}
+    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    max_err, by = 0.0, {}
+    for k, s, shape, blocks in b4_dw_shapes():
+        x = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        w = 0.3 * torch.randn(shape[1], 1, k, k, generator=gen, device="cuda")
+        err, t = check_dw(f"B4 blocks {blocks[0]}-{blocks[-1]} k{k} s{s} "
+                          f"{tuple(shape)} bf16", x, w, s, grads=True)
+        max_err = max(max_err, err)
+        for key in total:
+            total[key] += len(blocks) * t[key]
+        by[t["bound_by"]] = by.get(t["bound_by"], 0) + len(blocks)
+    bound_by = max(by, key=by.get)
+    print(f"dw_conv_stats, the {DW_B4} bf16 launches of one bsz-4 B4 train "
+          f"forward ({len(b4_dw_shapes())} shapes), device ms: kernel "
+          f"{total['ms']:.4f} (profiler), bound {total['bound_ms']:.4f} "
+          f"({bound_by}; the kernel at {100 * total['bound_ms'] / total['ms']:.1f}% "
+          f"of it); queued (CUDA events): plain {total['plain_ms']:.4f}, cuDNN "
+          f"conv {total['library_ms']:.4f}", flush=True)
+    out["dw_conv_stats"] = (max_err, {**total, "bound_by": bound_by})
+    return out
+
+
+STRETCH_STEPS, STRETCH_VAL, STRETCH_RECAL, STRETCH_ACCUM = 10, 5, 2, 2
+
+
+def phase_stretch_training(tmp, seed):
+    """Phase 12. Returns ({kernel: bf16 launches}, loop wall ms a step over
+    the last 5 steps)."""
+    t0 = time.perf_counter()
+    root = generate_fixture(f"{tmp}/simbev400", num_scenes=10, samples_per_scene=4,
+                            H=224, W=480, grid=400, seed=seed)
+    print(f"stretch fixture: 10 scenes x 4 samples at 224 x 480, 400 x 400 "
+          f"labels (8 train scenes, 2 val) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    run = f"{tmp}/stretch"
+    kw = dict(dataroot=str(root), nepochs=10, bsz=4, nworkers=6,
+              xbound=STRETCH_GRID.xbound, ybound=STRETCH_GRID.ybound,
+              variant="b4", label_mode="multiclass", compute_dtype="bfloat16",
+              fused_dw=True, lr_schedule="cosine", warmup_steps=2,
+              ema_decay=0.999, ema_bn_recal=STRETCH_RECAL,
+              accum_steps=STRETCH_ACCUM, iou_log_step=STRETCH_VAL, seed=seed,
+              device="cuda")
+    reset_launches()  # the stretch path starts here
+    t0 = time.perf_counter()
+    result = train(**kw, max_steps=STRETCH_STEPS, val_step=STRETCH_VAL,
+                   save_step=STRETCH_VAL, logdir=run)
+    train_s = time.perf_counter() - t0
+    assert result["counter"] == STRETCH_STEPS, result["counter"]
+    recs = read_metrics(f"{run}/metrics.jsonl")
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    vals = [r for r in recs if "val/iou" in r]
+    assert losses and all(map(math.isfinite, losses)), losses
+    assert len(vals) == STRETCH_STEPS // STRETCH_VAL, vals
+    for r in vals:
+        assert {"val/iou_raw", "val/loss_raw", "val/iou_c3"} <= set(r), r
+        assert all(math.isfinite(r[k]) for k in r if k.startswith("val/")), r
+    for name in ("model_000005.pt", "model_000010.pt", "model_best.pt",
+                 "model_final.pt"):
+        ck = torch.load(f"{run}/ckpts/{name}", map_location="cpu",
+                        weights_only=True, mmap=True)
+        assert "ema_state_dict" in ck, (name, sorted(ck))
+    resumed = train(**kw, max_steps=7, val_step=0, save_step=0,
+                    logdir=f"{tmp}/stretch_resumed",
+                    resume=f"{run}/ckpts/model_000005.pt")
+    assert resumed["start_counter"] == 5 and resumed["counter"] == 7, resumed
+    art = f"{tmp}/stretch_best.pt"
+    export_cli(["--checkpoint", f"{run}/ckpts", "--best", "--ema",
+                "--compute_dtype", "bfloat16", "--variant", "b4",
+                "--outC", str(STRETCH_CLASSES), "--uint8", "--out", art,
+                "--xbound", *map(str, STRETCH_GRID.xbound),
+                "--ybound", *map(str, STRETCH_GRID.ybound)])
+    one = inputs(np.random.default_rng(seed), 1, uint8=True)
+    with Running(serve(art, port=0, device="cuda")) as base:
+        got = post(base, one)
+    launches = {"dw_conv_stats": dict(mbconv_cuda.launches_by_dtype),
+                "splat": dict(splat_cuda.launches_by_dtype)}
+    # the stretch path ends here
+    assert got.dtype == np.float32 and got.shape == (1, STRETCH_CLASSES, 400, 400)
+    assert np.isfinite(got).all(), "non-finite served logits"
+    want = load_predict(art, device="cuda")(*one).cpu().numpy()
+    served_gap = float(np.abs(got - want).max())
+    # train-mode forwards: two microbatches a step, and STRETCH_RECAL
+    # recalibration forwards before each validation; the resume's 2 steps
+    forwards = (STRETCH_ACCUM * STRETCH_STEPS
+                + STRETCH_RECAL * (STRETCH_STEPS // STRETCH_VAL)
+                + STRETCH_ACCUM * 2)
+    assert launches["dw_conv_stats"] == {"float32": 0, "bfloat16": DW_B4 * forwards}, (
+        launches, forwards)
+    assert launches["splat"]["float32"] == 0 and launches["splat"]["bfloat16"] > 0, launches
+    step_ms = [1e3 * r["train/step_time"] for r in recs if "train/step_time" in r]
+    print(f"stretch training: train() B4 400 x 400 bf16 fused_dw, bsz 4 x "
+          f"{STRETCH_ACCUM} microbatches, cosine (warm-up 2), EMA 0.999 with BN "
+          f"recalibration over {STRETCH_RECAL} batches, {STRETCH_STEPS} steps in "
+          f"{train_s:.1f} s (validations and checkpoints included); losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; val "
+          + "; ".join("EMA loss {:.4f} iou {:.4f}, raw loss {:.4f} iou {:.4f}".format(
+              r["val/loss"], r["val/iou"], r["val/loss_raw"], r["val/iou_raw"])
+              for r in vals)
+          + f"; launches by dtype: dw_conv_stats {launches['dw_conv_stats']} (= "
+          f"{DW_B4} x {forwards} train-mode forwards), splat {launches['splat']}; "
+          f"every checkpoint carries ema_state_dict; resume from step 5 "
+          f"continued to {resumed['counter']}; model_best.pt exported --ema "
+          f"--compute_dtype bfloat16 and served one request: f32 logits "
+          f"{got.shape[1:]}, finite, max |served - direct| {served_gap:.3e}; "
+          f"loop wall ms a step {', '.join(f'{v:.1f}' for v in step_ms)} (per "
+          f"{STRETCH_VAL}-step window)", flush=True)
+    counts = {k: v["bfloat16"] for k, v in launches.items()}
+    return counts, step_ms[-1]
+
+
+# bf16 against f32 on the card, the stretch model at bsz 1 in eval mode
+# with seeded weights and BN statistics (cuDNN TF32 off for f32): max
+# |logit_bf16 - logit_f32| over max(1, max |logit_f32|). Seeds 0-5 read
+# 1.84e-2, 2.33e-2, 3.06e-2, 1.88e-2, 2.57e-2 and 1.71e-2 on an H100
+# (PERF.md §6); the limit is twice the largest.
+BF16_SEEDS = 4
+BF16_TOL = 6e-2
+
+
+def phase_bf16(card, seed, loop_step_ms):
+    """Phase 13."""
+    gaps = []
+    for s in range(seed, seed + BF16_SEEDS):
+        f32 = stretch_model(s, "float32").eval()
+        bf16 = stretch_model(s, "bfloat16", state_dict={
+            k: v.cpu() for k, v in f32.state_dict().items()}).eval()
+        x = [torch.as_tensor(a).cuda() for a in
+             inputs(np.random.default_rng(s), 1, uint8=True)]
+        with torch.inference_mode():
+            a, b = f32(*x), bf16(*x)
+        assert a.dtype == b.dtype == torch.float32 and torch.isfinite(b).all()
+        scale = max(1.0, a.abs().max().item())
+        gaps.append(((b - a).abs().max().item() / scale, scale,
+                     ((b - a).abs().mean() / a.abs().mean()).item()))
+        if s == seed:
+            lat = {}
+            torch.backends.cudnn.allow_tf32 = True
+            with torch.inference_mode():
+                for name, m in (("f32, TF32", f32), ("bf16", bf16)):
+                    lat[name] = cuda_ms(lambda: m(*x), iters=10)
+            torch.backends.cudnn.allow_tf32 = False
+        del f32, bf16
+    print(f"bf16 vs f32 (TF32 off), the stretch model at bsz 1, seeds "
+          f"{seed}-{seed + BF16_SEEDS - 1}: max |diff| / max(1, max|f32|) "
+          + ", ".join(f"{g:.3e} (scale {sc:.2f}, mean |diff| / mean |f32| {m:.3e})"
+                      for g, sc, m in gaps)
+          + f"; limit {BF16_TOL}; bsz-1 forward on {card}: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in lat.items())
+          + " (CUDA events, 10 after 3)", flush=True)
+    assert max(g for g, _, _ in gaps) <= BF16_TOL, gaps
+    torch.cuda.empty_cache()
+
+    # train-step times, bf16 against f32 with cuDNN TF32, in turns
+    rng = np.random.default_rng(seed)
+    torch.backends.cudnn.allow_tf32 = True
+    cases = (("B4 stretch bsz 4, fused_dw", True,
+              random_batch(rng, 4, 400, STRETCH_CLASSES),
+              dict(grid_conf=STRETCH_GRID, variant="b4", outC=STRETCH_CLASSES)),
+             ("B0 default bsz 4", False, random_batch(rng, 4), {}))
+    for name, fused, batch, kw in cases:
+        steps = {dt: train_step_fn(fused, seed, batch, compute_dtype=dt, **kw)
+                 for dt in ("float32", "bfloat16")}
+        windows = {dt: [] for dt in steps}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            windows[dt].append(cuda_ms(steps[dt], iters=10, warmup=3))
+        print(f"times on {card}: {name} train step, " + "; ".join(
+            f"{'bf16' if dt == 'bfloat16' else 'f32 (cuDNN TF32)'} "
+            f"{sum(w) / len(w):.3f} ms ({w[0]:.3f}, {w[1]:.3f})"
+            for dt, w in windows.items())
+            + " (CUDA events, two windows of 10 steps after 3, in turns "
+            "f32/bf16/bf16/f32; inputs on the card)", flush=True)
+        del steps
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+
+    # the recipe's optimizer step: two bf16 microbatches of bsz 4
+    stacked = tuple(torch.stack(pair) for pair in zip(
+        random_batch(rng, 4, 400, STRETCH_CLASSES),
+        random_batch(rng, 4, 400, STRETCH_CLASSES)))
+    step = train_step_fn(True, seed, stacked, accum_steps=STRETCH_ACCUM,
+                         grid_conf=STRETCH_GRID, variant="b4",
+                         outC=STRETCH_CLASSES, compute_dtype="bfloat16")
+    busy, text = profile_train_step(step, 2, (4, 256, 400, 400))
+    print(f"profile B4 stretch optimizer step (bf16, 2 microbatches of bsz 4, "
+          f"fused_dw): {text}", flush=True)
+    idle = ("not measured" if busy is None else
+            f"{max(0.0, 1 - busy / loop_step_ms):.3f}")
+    print(f"stretch train() loop device idle share (phase 12, steps 6-10): "
+          f"{idle} (device busy {busy if busy is None else round(busy, 3)} ms "
+          f"a step from this profile over loop wall {loop_step_ms:.1f} ms a "
+          f"step)", flush=True)
+    del step
+    torch.cuda.empty_cache()
 
 
 def main_path_splat(model, many):
@@ -1055,6 +1373,11 @@ def main(argv=None) -> int:
     # phases 5 and 10 also time cuDNN's default TF32 convolutions
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    started = time.perf_counter()
+
+    def at(phase: int) -> None:
+        print(f"phase {phase} starts at {time.perf_counter() - started:.1f} s",
+              flush=True)
 
     # 1. card and build
     card = card_line()
@@ -1073,6 +1396,7 @@ def main(argv=None) -> int:
     print(f"build: both kernels in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. the kernel against its plain version
+    at(2)
     B, P, C, S = 8, 6 * 41 * 8 * 22, 64, 200 * 200
     for name, dtype, slots in (("f32 S=40000", torch.float32, S),
                                ("bf16 S=40000", torch.bfloat16, S),
@@ -1080,6 +1404,7 @@ def main(argv=None) -> int:
         check_splat(name, *random_splat_inputs(gen, B, P, C, slots, dtype), slots)
 
     # 3. serving at full width
+    at(3)
     cpu_gen = torch.Generator().manual_seed(args.seed)
     model = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
                           splat_method="pallas", device="cpu", generator=cpu_gen)
@@ -1090,6 +1415,7 @@ def main(argv=None) -> int:
         max_err, times = main_path_splat(model, many)
 
         # 4. card against CPU, TF32 off
+        at(4)
         one = inputs(rng, 1, uint8=True)
         on_card = load_predict(path1, device="cuda")
         x = (one[0].astype(np.float32),) + one[1:]
@@ -1100,6 +1426,7 @@ def main(argv=None) -> int:
               f"|diff| {err:.3e}, tolerance {CPU_TOL} x {scale:.3f}", flush=True)
 
         # 5. times, in full f32 and with cuDNN's TF32 default
+        at(5)
         dev8 = [torch.as_tensor(a).cuda() for a in many]
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
@@ -1120,6 +1447,7 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
 
         # 6. where the device time goes (a reading, not a check)
+        at(6)
         for tf32 in (False, True):
             torch.backends.cudnn.allow_tf32 = tf32
             for name, fn in (("bsz 8", lambda: model(*dev8)),
@@ -1129,27 +1457,53 @@ def main(argv=None) -> int:
         torch.backends.cudnn.allow_tf32 = False
 
         # 7. the depthwise conv + BN moments kernel against its plain version
+        at(7)
         dw_err, dw_times = phase_dw(gen)
 
         # 8. training at full width through train(); 9. card vs CPU
+        at(8)
         root, dw_launches, splat_train, loop_step_ms = phase_training(tmp, args.seed)
+        at(9)
         phase_card_vs_cpu(root, args.seed)
 
         # 10. train-step times and where the device time goes
+        at(10)
         phase_train_times(card, rng, args.seed, loop_step_ms)
 
+        # 11. both kernels in bf16 at the stretch shapes; 12. the stretch
+        # recipe through train(); 13. bf16 against f32, and times
+        at(11)
+        stretch = phase_stretch_kernels(gen, args.seed)
+        at(12)
+        stretch_launches, stretch_step_ms = phase_stretch_training(tmp, args.seed)
+        at(13)
+        phase_bf16(card, args.seed, stretch_step_ms)
+        at(14)  # the end
+
     print(f"main-path launches: splat {launches} serving + {splat_train} "
-          f"training; dw_conv_stats {dw_launches} training", flush=True)
+          f"training + {stretch_launches['splat']} stretch (bf16); "
+          f"dw_conv_stats {dw_launches} training + "
+          f"{stretch_launches['dw_conv_stats']} stretch (bf16)", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
+
+    def stretch_row(name):
+        err, t = stretch[name]
+        return {"launches": stretch_launches[name], "max_abs_err": err,
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
     kernels = [{"name": "splat", "route": "cuda",
                 "source": "lss_carla_torch/csrc/splat.cu",
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
-                "launches": launches + splat_train, "max_abs_err": max_err,
-                **times},
+                "launches": launches + splat_train + stretch_launches["splat"],
+                "max_abs_err": max_err, **times,
+                "stretch_bf16": stretch_row("splat")},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
-                "launches": dw_launches, "max_abs_err": dw_err, **dw_times}]
+                "launches": dw_launches + stretch_launches["dw_conv_stats"],
+                "max_abs_err": dw_err, **dw_times,
+                "stretch_bf16": stretch_row("dw_conv_stats")}]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ step before it.
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -115,6 +116,24 @@ class DataLoader:
                 yield self._assemble([f.result() for f in futs], valid)
         finally:
             executor.shutdown(wait=False, cancel_futures=True)
+
+
+def stack_microbatches(iterator, accum_steps: int):
+    """Group ``accum_steps`` consecutive host batches and stack each entry
+    along a new leading axis: (B, ...) -> (accum_steps, B, ...), for the
+    gradient-accumulation train step (``make_train_step(...,
+    accum_steps=A)``). A ragged tail (fewer than ``accum_steps`` batches
+    left in the epoch) is dropped, as the train loader drops a ragged
+    batch. ``accum_steps`` 1 passes the batches through."""
+    if accum_steps <= 1:
+        yield from iterator
+        return
+    it = iter(iterator)
+    while True:
+        group = list(itertools.islice(it, accum_steps))
+        if len(group) < accum_steps:
+            return
+        yield tuple(np.stack(parts) for parts in zip(*group))
 
 
 def prefetch_to_device(iterator, device, size: int = 2):

@@ -9,10 +9,11 @@ Counterpart of ``lss_carla_tpu/models/bevencode.py`` (reference
 * ``Up(64+256, 256, scale=4)`` skip fuse from layer1;
 * Dropout2d(0.1);
 * ``up2``: upsample x2 (align_corners) + conv3x3(128) + BN + ReLU +
-  conv1x1(outC) head, in f32.
+  conv1x1(outC) head.
 
 Takes the splat's channels-last (B, X, Y, inC) and runs NCHW with X as H
-and Y as W; returns (B, X, Y, outC) like the JAX module.
+and Y as W; returns (B, X, Y, outC) like the JAX module. Everything up to
+the head runs in ``compute_dtype``; the head and the logits are f32.
 """
 
 from __future__ import annotations
@@ -21,13 +22,15 @@ import torch
 from torch import nn
 
 from lss_carla_torch.models.layers import (
-    BasicBlock, BatchNorm2d, ConvBNReLU, Dropout2d, Up, Upsample)
+    BasicBlock, BatchNorm2d, Conv2d, ConvBNReLU, Dropout2d, Up, Upsample)
 
 
 class BevEncode(nn.Module):
-    def __init__(self, inC: int, outC: int = 1):
+    def __init__(self, inC: int, outC: int = 1,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(inC, 64, 7, stride=2, padding=3, bias=False)
+        self.compute_dtype = compute_dtype
+        self.conv1 = Conv2d(inC, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = BatchNorm2d(64)
         self.relu = nn.ReLU(inplace=True)
         self.layer1 = nn.Sequential(BasicBlock(64, 64), BasicBlock(64, 64))
@@ -39,9 +42,12 @@ class BevEncode(nn.Module):
                                  nn.Conv2d(128, outC, 1))
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2).to(torch.float32)  # (B, inC, X, Y)
+        x = x.permute(0, 3, 1, 2).to(self.compute_dtype)  # (B, inC, X, Y)
         x = self.relu(self.bn1(self.conv1(x)))
         x1 = self.layer1(x)
         x = self.layer3(self.layer2(x1))
         x = self.dropout(self.up1(x, x1))
-        return self.up2(x).permute(0, 2, 3, 1)
+        *up2, head = self.up2
+        for layer in up2:
+            x = layer(x)
+        return head(x.to(torch.float32)).permute(0, 2, 3, 1)

@@ -17,6 +17,11 @@ Counterpart of ``lss_carla_tpu/models/efficientnet.py``; module names follow
   its convs have a bias.
 * The residual applies only when ``stride == 1 and cin == cout``;
   drop-connect ``rate * idx / len(plan)`` only in training mode.
+* ``compute_dtype``: the trunk casts its input to it at entry, and every
+  layer after follows its input's dtype (``layers.Conv2d``,
+  ``layers.BatchNorm2d``); parameters and running stats stay f32. The fused
+  path rounds the depthwise kernel to the compute dtype, takes BN and swish
+  in f32 and returns the compute dtype, as the JAX block does.
 
 Endpoints are recorded like the reference harvest loop
 (``models.py:72-82``): whenever a block reduces spatial size, the input to
@@ -33,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lss_carla_torch.models.layers import BatchNorm2d
+from lss_carla_torch.models.layers import BatchNorm2d, Conv2d
 from lss_carla_torch.ops.mbconv import fused_dw_bn_swish, same_pad
 
 # (expand_ratio, kernel, stride, in_filters, out_filters, num_repeats)
@@ -126,15 +131,15 @@ class MBConvBlock(nn.Module):
         self.drop_connect_rate = drop_connect_rate
         self.fused_dw = fused_dw
         if expand != 1:
-            self._expand_conv = nn.Conv2d(cin, mid, 1, bias=False)
+            self._expand_conv = Conv2d(cin, mid, 1, bias=False)
             self._bn0 = _bn(mid)
-        self._depthwise_conv = nn.Conv2d(mid, mid, kernel, stride=stride,
-                                         groups=mid, bias=False)
+        self._depthwise_conv = Conv2d(mid, mid, kernel, stride=stride,
+                                      groups=mid, bias=False)
         self._bn1 = _bn(mid)
         se_ch = max(1, int(cin * _SE_RATIO))
-        self._se_reduce = nn.Conv2d(mid, se_ch, 1)
-        self._se_expand = nn.Conv2d(se_ch, mid, 1)
-        self._project_conv = nn.Conv2d(mid, cout, 1, bias=False)
+        self._se_reduce = Conv2d(mid, se_ch, 1)
+        self._se_expand = Conv2d(se_ch, mid, 1)
+        self._project_conv = Conv2d(mid, cout, 1, bias=False)
         self._bn2 = _bn(cout)
 
     def forward(self, x):
@@ -172,11 +177,13 @@ class EfficientNetTrunk(nn.Module):
     """Stem + MBConv blocks + endpoint harvest (no classifier head)."""
 
     def __init__(self, variant: str = "b0", drop_connect_rate: float = 0.2,
-                 fused_dw: bool = False):
+                 fused_dw: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         width, _, _ = VARIANTS[variant]
         stem_ch = round_filters(32, width)
-        self._conv_stem = nn.Conv2d(3, stem_ch, 3, stride=2, bias=False)
+        self._conv_stem = Conv2d(3, stem_ch, 3, stride=2, bias=False)
         self._bn0 = _bn(stem_ch)
         plan = block_plan(variant)
         self._blocks = nn.ModuleList(
@@ -186,7 +193,9 @@ class EfficientNetTrunk(nn.Module):
             for idx, args in enumerate(plan))
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
-        """x: (N, 3, H, W) -> {"reduction_k": (N, C_k, H_k, W_k)}."""
+        """x: (N, 3, H, W) -> {"reduction_k": (N, C_k, H_k, W_k)}, in the
+        compute dtype."""
+        x = x.to(self.compute_dtype)
         x = F.silu(self._bn0(self._conv_stem(same_pad(x, 3, 2))))
         endpoints: Dict[str, torch.Tensor] = {}
         prev = x

@@ -6,6 +6,12 @@ convs in ``conv`` (``conv.0``/``conv.1``/``conv.3``/``conv.4``), and
 ``Sequential`` (``*ConvBNReLU(...)``) so the parent's indices stay the
 reference's. Convolutions use symmetric ``k//2`` padding; BN is
 ``BatchNorm2d`` below at torch's default eps 1e-5 and momentum 0.1.
+
+Compute dtype: every layer computes in its input's dtype, as a flax module
+built with ``dtype=`` does. ``Conv2d`` casts its f32 weight and bias to the
+input's dtype; ``BatchNorm2d`` takes a bf16 input with f32 affine
+parameters and running stats and returns bf16, its batch moments in f32.
+Parameters and running stats stay f32.
 """
 
 from __future__ import annotations
@@ -20,6 +26,15 @@ from lss_carla_torch.ops.image import upsample_align_corners
 Dropout2d = nn.Dropout2d
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in its input's dtype: the f32 weight and bias are cast
+    to it (flax's ``nn.Conv(dtype=...)``). Same state-dict names."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose running variance follows flax.
 
@@ -28,7 +43,15 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``running_var``; flax, and so the JAX package, stores the biased one.
     This class stores the biased variance, with flax's update
     ``running = (1 - m) * running + m * batch`` at torch's momentum m.
-    Eval mode and the state-dict names are torch's."""
+    Eval mode and the state-dict names are torch's.
+
+    Every train-mode batch moment reaches the running stats through
+    ``update_running_stats``, the fused MBConv path's too. While
+    ``moments`` is a list (``training/bn_recal.py`` sets it), that method
+    appends each batch's (mean, var) there and leaves the running stats
+    alone."""
+
+    moments = None
 
     def forward(self, x):
         if not self.training:
@@ -43,7 +66,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
         """Fold one batch's mean and biased variance into the running
-        stats."""
+        stats (or record them, see the class note)."""
+        if self.moments is not None:
+            self.moments.append((mean.detach(), var.detach()))
+            return
         m = self.momentum
         self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
         self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
@@ -55,8 +81,8 @@ class ConvBNReLU(nn.Sequential):
 
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1):
         super().__init__(
-            nn.Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
-                      bias=False),
+            Conv2d(cin, cout, kernel, stride=stride, padding=kernel // 2,
+                   bias=False),
             BatchNorm2d(cout, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True))
 
@@ -94,16 +120,16 @@ class BasicBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1,
-                               bias=False)
+        self.conv1 = Conv2d(cin, cout, 3, stride=stride, padding=1,
+                            bias=False)
         self.bn1 = BatchNorm2d(cout)
-        self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
+        self.conv2 = Conv2d(cout, cout, 3, padding=1, bias=False)
         self.bn2 = BatchNorm2d(cout)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride=stride, bias=False),
+                Conv2d(cin, cout, 1, stride=stride, bias=False),
                 BatchNorm2d(cout))
 
     def forward(self, x):

@@ -13,8 +13,9 @@ the kernel does not take: a CPU tensor goes to the plain version
 (``ops/mbconv.py::dw_conv_stats_reference``) in the caller, never here.
 
 ``launches`` counts the wrapper's calls that launched the kernel in this
-process; ``chip_smoke.py`` sets it to 0 before it drives the main path and
-reads it after.
+process, and ``launches_by_dtype`` the same calls by x's dtype;
+``chip_smoke.py`` sets both to 0 (``reset_launches``) before it drives a
+path and reads them after.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 from lss_carla_torch.ops._nvcc import NvccLibrary
 
 launches = 0          # kernel launches in this process (plain int)
+launches_by_dtype = {"float32": 0, "bfloat16": 0}  # the same, by input dtype
 
 STRIP = 4             # outputs a thread computes side by side (kStrip)
 MAX_THREADS = 256     # threads a block, at most (kMaxThreads)
@@ -48,6 +50,14 @@ def _declare(lib: ctypes.CDLL) -> None:
 LIB = NvccLibrary("dw_conv_stats", _declare)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_dtype`` count to 0."""
+    global launches
+    launches = 0
+    for key in launches_by_dtype:
+        launches_by_dtype[key] = 0
 
 
 def same_pad_amounts(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -218,4 +228,5 @@ def dw_conv_stats_forward(x: torch.Tensor, w: torch.Tensor, stride: int):
             pl.pb, pl.pitch, pl.rawstride, pl.threads, stream)
     LIB.check(rc, "dw_conv_stats kernel")
     launches += 1
+    launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
     return y, sums, sumsq

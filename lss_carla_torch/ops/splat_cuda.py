@@ -13,8 +13,10 @@ in the caller, never here.
 The wrapper zero-fills the f32 accumulator on the stream, launches the
 kernel once, and for bf16 features rounds the accumulator to bf16.
 
-``launches`` counts the kernel launches of this process; ``chip_smoke.py``
-sets it to 0 before it drives the main path and reads it after.
+``launches`` counts the kernel launches of this process, and
+``launches_by_dtype`` the same launches by the features' dtype;
+``chip_smoke.py`` sets both to 0 (``reset_launches``) before it drives a
+path and reads them after.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from lss_carla_torch.ops._nvcc import NvccLibrary
 
 launches = 0          # kernel launches in this process (plain int)
+launches_by_dtype = {"float32": 0, "bfloat16": 0}  # the same, by input dtype
 
 TILE = 176            # consecutive points a block sorts and reduces (kTile)
 
@@ -43,6 +46,14 @@ build = LIB.build
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    """Set ``launches`` and every ``launches_by_dtype`` count to 0."""
+    global launches
+    launches = 0
+    for key in launches_by_dtype:
+        launches_by_dtype[key] = 0
 
 
 def splat_forward(pts: torch.Tensor, ids: torch.Tensor,
@@ -83,4 +94,5 @@ def splat_forward(pts: torch.Tensor, ids: torch.Tensor,
                                    num_slots, stream)
     LIB.check(rc, "splat kernel")
     launches += 1
+    launches_by_dtype[str(pts.dtype).removeprefix("torch.")] += 1
     return acc if pts.dtype == torch.float32 else acc.to(pts.dtype)

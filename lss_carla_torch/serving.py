@@ -112,12 +112,18 @@ def load_predict(path: str, device="cuda") -> Predictor:
     return Predictor(model.eval().to(dev), blob["signature"], dev)
 
 
-def _main():
+def _main(argv=None):
     """CLI: reference-format checkpoint -> serving artifact
     (``python -m lss_carla_torch.server`` serves it).
 
-        python -m lss_carla_torch.serving --checkpoint model_best.pt \\
-            --out /models/lss.pt [--uint8] [--bsz 8] [--variant b0]
+        python -m lss_carla_torch.serving --checkpoint runs/x/ckpts --best \\
+            --out /models/lss.pt [--ema] [--compute_dtype bfloat16] \\
+            [--uint8] [--bsz 8] [--variant b4]
+
+    ``--checkpoint`` is a ``.pt`` file or a run's checkpoint directory (its
+    newest checkpoint, or ``model_best.pt`` with ``--best``). ``--ema``
+    exports the checkpoint's ``ema_state_dict`` where it has one, else the
+    raw weights. ``--compute_dtype bfloat16`` serves in bf16.
     """
     import argparse
     import os
@@ -125,9 +131,17 @@ def _main():
     p = argparse.ArgumentParser(
         description="Export a reference-format checkpoint as a serving artifact")
     p.add_argument("--checkpoint", required=True,
-                   help="reference .pt: {'model_state_dict': ...} or a raw "
-                        "state dict")
+                   help="reference .pt ({'model_state_dict': ...} or a raw "
+                        "state dict), or a checkpoint directory")
     p.add_argument("--out", required=True, help="artifact output path")
+    p.add_argument("--best", action="store_true",
+                   help="with a directory: export its model_best.pt")
+    p.add_argument("--ema", action="store_true",
+                   help="export the EMA weights (runs trained with "
+                        "--ema_decay); the raw weights for checkpoints "
+                        "without them")
+    p.add_argument("--compute_dtype", default="float32",
+                   choices=("float32", "bfloat16"))
     p.add_argument("--uint8", action="store_true",
                    help="uint8 image inputs (normalised on the device)")
     p.add_argument("--bsz", type=int, default=1)
@@ -147,24 +161,37 @@ def _main():
                    default=(-10.0, 10.0, 20.0), metavar=("MIN", "MAX", "STEP"))
     p.add_argument("--dbound", type=float, nargs=3,
                    default=(4.0, 45.0, 1.0), metavar=("MIN", "MAX", "STEP"))
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     from lss_carla_torch.configs import DataAugConf, GridConf
+    from lss_carla_torch.utils.checkpoint import BEST, load_checkpoint
     from lss_carla_torch.utils.convert import reference_state_dict
 
     grid = GridConf(xbound=tuple(args.xbound), ybound=tuple(args.ybound),
                     zbound=tuple(args.zbound), dbound=tuple(args.dbound))
     aug = DataAugConf(H=args.H, W=args.W, final_dim=tuple(args.final_dim))
     model = compile_model(grid, aug, outC=args.outC, variant=args.variant,
-                          device="cpu")
-    ckpt = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
+                          compute_dtype=args.compute_dtype, device="cpu")
+    path = args.checkpoint
+    if args.best:
+        if not os.path.isdir(path):
+            raise SystemExit("--best takes a checkpoint directory")
+        path = os.path.join(path, BEST)
+    ckpt = load_checkpoint(path)
+    weights = "raw"
     if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
-        ckpt = ckpt["model_state_dict"]
+        if args.ema and "ema_state_dict" in ckpt:
+            weights, ckpt = "ema", ckpt["ema_state_dict"]
+        else:
+            if args.ema:
+                print("checkpoint has no EMA weights; exporting the raw ones")
+            ckpt = ckpt["model_state_dict"]
     model.load_state_dict(reference_state_dict(ckpt))
     export_predict(model, args.out, bsz=args.bsz, uint8_images=args.uint8,
                    ncams=args.ncams)
     print(f"exported {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, "
-          f"bsz {args.bsz}{', uint8-in' if args.uint8 else ''})")
+          f"bsz {args.bsz}, {args.compute_dtype}, {weights} weights"
+          f"{', uint8-in' if args.uint8 else ''})")
 
 
 if __name__ == "__main__":

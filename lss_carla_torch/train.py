@@ -1,9 +1,19 @@
-"""Training CLI of the port: ``train_simbev.py``'s flags that this slice
-keeps, with the same names and defaults, plus ``--fused_dw`` and
+"""Training CLI of the port: ``train_simbev.py``'s flags that the port
+has, with the same names and defaults, plus ``--fused_dw`` and
 ``--device``.
 
     python -m lss_carla_torch.train --dataroot /data/SimBEV --bsz 4 \\
         --nworkers 8 [--fused_dw] [--max_steps N]
+
+The stretch recipe (``configs/simbev_stretch.sh`` on one card: B4, a
+400 x 400 grid at 0.25 m, 4-class labels, bf16, cosine with warm-up, EMA
+with BN recalibration, two microbatches a step):
+
+    python -m lss_carla_torch.train --dataroot /data/SimBEV --nepochs 30 \\
+        --bsz 4 --nworkers 16 --xbound -50 50 0.25 --ybound -50 50 0.25 \\
+        --label_mode multiclass --variant b4 --compute_dtype bfloat16 \\
+        --fused_dw --lr_schedule cosine --warmup_steps 500 \\
+        --ema_decay 0.999 --accum_steps 2 --val_step 2000 --save_step 2000
 
 The JAX CLI's other flags are accepted only to say where they wait in
 ``ROADMAP.md``: passing one exits with that message.
@@ -57,6 +67,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup_steps", type=int, default=0)
     p.add_argument("--decay_steps", type=int, default=0,
                    help="schedule horizon in steps (0 = auto)")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="> 0 (e.g. 0.999): validate, track the best IoU "
+                        "and checkpoint an EMA of the model")
+    p.add_argument("--ema_bn_recal", type=int, default=16,
+                   help="training batches the EMA's BN stats are "
+                        "recalibrated over before each validation (0 = off)")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="loader batches per optimizer step (gradient "
+                        "accumulation)")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
     p.add_argument("--splat_method", type=str, default="scatter",
                    choices=["scatter", "sorted", "pallas"],
                    help="kept for parity; every method runs the same splat")
@@ -103,6 +124,8 @@ def main(argv=None):
         zbound=tuple(args.zbound), dbound=tuple(args.dbound),
         resume=args.resume, lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
+        ema_decay=args.ema_decay, ema_bn_recal=args.ema_bn_recal,
+        accum_steps=args.accum_steps, compute_dtype=args.compute_dtype,
         splat_method=args.splat_method, pos_weight=tuple(args.pos_weight),
         label_mode=args.label_mode, label_classes=tuple(args.label_classes),
         extrinsic_noise=(tuple(args.extrinsic_noise)

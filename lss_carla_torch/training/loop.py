@@ -1,21 +1,30 @@
 """The single-device training loop: counterpart of
 ``lss_carla_tpu/training/loop.py`` (reference ``train_simbev.py:23-460``).
 
-SimBEV loader -> ``prefetch_to_device`` (pinned host batches, copies on
-the consumer thread) -> eager train step (forward, weighted BCE,
-backward, optax-rule clip, Adam) -> validation over the whole val set ->
-torch checkpoints in the reference's format, with best-IoU tracking and
-resume. SIGTERM or SIGINT saves a resumable checkpoint and stops. Metric
-syncs are batched: the loss is read every 10 steps and the IoU and step
-time every ``iou_log_step`` steps.
+SimBEV loader (-> ``stack_microbatches`` with ``accum_steps`` > 1) ->
+``prefetch_to_device`` (pinned host batches, copies on the consumer
+thread) -> eager train step (forward, weighted BCE, backward, optax-rule
+clip, Adam, EMA) -> validation over the whole val set -> torch checkpoints
+in the reference's format, with best-IoU tracking and resume. SIGTERM or
+SIGINT saves a resumable checkpoint and stops. Metric syncs are batched:
+the loss is read every 10 steps and the IoU and step time every
+``iou_log_step`` steps. ``compute_dtype`` "bfloat16" runs the model in
+bf16 (``models/lss.py``).
 
-Flags of the JAX trainer that this slice does not port raise
+With ``ema_decay > 0`` validation, best-IoU tracking and ``model_best.pt``'s
+``ema_state_dict`` use the averaged model, whose BN stats are first
+recalibrated over the last ``ema_bn_recal`` training batches (microbatch
+0 of each, ``training/bn_recal.py``); the raw model's validation is logged
+beside it as ``val/loss_raw`` and ``val/iou_raw``.
+
+Flags of the JAX trainer that the port does not have yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item (``UNPORTED``);
 none is ignored.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import signal
 import time
@@ -25,9 +34,12 @@ import numpy as np
 import torch
 
 from lss_carla_torch.configs import DataAugConf, GridConf
-from lss_carla_torch.data.loader import compile_data, prefetch_to_device
+from lss_carla_torch.data.loader import (compile_data, prefetch_to_device,
+                                         stack_microbatches)
 from lss_carla_torch.models.lss import compile_model
-from lss_carla_torch.training.state import create_train_state
+from lss_carla_torch.training.bn_recal import recalibrate_bn
+from lss_carla_torch.training.state import (create_train_state,
+                                            restore_train_state)
 from lss_carla_torch.training.step import make_eval_step, make_train_step
 from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.checkpoint import CheckpointManager, load_checkpoint
@@ -35,10 +47,6 @@ from lss_carla_torch.utils.logging import MetricLogger
 
 # keyword of the JAX trainer -> (its values that mean "off", ROADMAP.md item)
 UNPORTED = {
-    "ema_decay": ((0.0,), "A5, EMA and training/bn_recal.py"),
-    "ema_bn_recal": ((16, 0), "A5, EMA and training/bn_recal.py"),
-    "accum_steps": ((1,), "A4, gradient accumulation"),
-    "compute_dtype": (("float32",), "A4, bf16 compute_dtype and autocast"),
     "pretrained_trunk": ((None,), "A5, --pretrained_trunk"),
     "use_wandb": ((False,), "A5, wandb and figures"),
     "wandb_project": (("lift-splat-shoot",), "A5, wandb and figures"),
@@ -124,7 +132,16 @@ def train(
     weight_decay: float = 1e-7,
     lr_schedule: str = "constant",
     warmup_steps: int = 0,
-    decay_steps: int = 0,             # 0 = auto: nepochs * steps an epoch
+    decay_steps: int = 0,             # 0 = auto: nepochs * optimizer steps
+                                      # an epoch
+    ema_decay: float = 0.0,           # > 0 (e.g. 0.999): an EMA of the
+                                      # model; validation, best-IoU and the
+                                      # checkpoints' ema_state_dict use it
+    ema_bn_recal: int = 16,           # training batches the EMA's BN stats
+                                      # are recalibrated over before each
+                                      # validation (0 = the EMA'd stats)
+    accum_steps: int = 1,             # > 1: one optimizer step a stack of
+                                      # accum_steps loader batches
     # validation and checkpoints
     val_step: int = 500,
     save_step: int = 1000,
@@ -132,6 +149,7 @@ def train(
     iou_log_step: int = 100,
     seed: int = 42,
     splat_method: str = "scatter",
+    compute_dtype: str = "float32",   # or "bfloat16" (models/lss.py)
     variant: str = "b0",
     fused_dw: bool = False,           # the depthwise conv + BN moments in
                                       # one pass (ops/mbconv.py)
@@ -149,8 +167,9 @@ def train(
     those in ``UNPORTED`` (which raise unless off). ``device`` is "cuda"
     unless the caller asks for the CPU; no GPU raises. Weights are drawn
     from a generator seeded ``seed``, and ``torch.manual_seed(seed)`` seeds
-    dropout and drop-connect. ``train/step_time`` is the mean wall time of
-    the steps since the previous IoU log, synchronised.
+    dropout and drop-connect. The step counter, ``max_steps``, ``val_step``
+    and ``save_step`` count optimizer steps. ``train/step_time`` is the
+    mean wall time of the steps since the previous IoU log, synchronised.
 
     Returns {"counter", "start_counter", "best_val_iou" (None without a
     validation), "state"}."""
@@ -177,10 +196,11 @@ def train(
     print("Training configuration:")
     print(f"  dataroot: {dataroot}")
     print(f"  logdir: {logdir}")
-    print(f"  device: {dev}  batch size: {bsz}")
+    print(f"  device: {dev}  batch size: {bsz} x {accum_steps} microbatches")
     print(f"  lr: {lr}  epochs: {nepochs}  cams: {ncams}")
     print(f"  image: {H}x{W} -> {tuple(final_dim)}")
-    print(f"  trunk: efficientnet-{variant}  fused_dw: {fused_dw}")
+    print(f"  trunk: efficientnet-{variant}  fused_dw: {fused_dw}  "
+          f"compute: {compute_dtype}")
     print("=" * 80)
 
     trainloader, valloader = compile_data(
@@ -193,25 +213,45 @@ def train(
     print(f"Train batches: {len(trainloader)}  Val batches: {len(valloader)}")
     if len(trainloader) == 0:
         raise ValueError(f"fewer train samples than one batch of {bsz}")
+    if accum_steps > len(trainloader):
+        # stack_microbatches drops the ragged tail: no step would run
+        raise ValueError(f"accum_steps={accum_steps} exceeds the "
+                         f"{len(trainloader)} train batches an epoch")
 
     model = compile_model(grid_conf, data_aug_conf, outC=outC,
                           splat_method=splat_method, variant=variant,
-                          fused_dw=fused_dw, device=dev,
+                          fused_dw=fused_dw, compute_dtype=compute_dtype,
+                          device=dev,
                           generator=torch.Generator().manual_seed(seed))
     if lr_schedule != "constant" and decay_steps <= 0:
-        decay_steps = max(nepochs * len(trainloader), warmup_steps + 1)
+        # optimizer steps: accum_steps loader batches make one
+        decay_steps = max(nepochs * (len(trainloader) // accum_steps),
+                          warmup_steps + 1)
         print(f"  lr schedule: {lr_schedule}, warmup {warmup_steps}, "
               f"decay over {decay_steps} steps (auto)")
+    if ema_decay:
+        print(f"  EMA on (decay {ema_decay}, warm-up ramped, "
+              f"~{1.0 / max(1.0 - ema_decay, 1e-9):.0f}-step horizon): "
+              "validation and best IoU use the averaged model, "
+              + (f"BN stats recalibrated over {ema_bn_recal} recent batches"
+                 if ema_bn_recal > 0 else "with the EMA'd BN stats"))
     state = create_train_state(model, lr=lr, weight_decay=weight_decay,
                                max_grad_norm=max_grad_norm,
                                lr_schedule=lr_schedule,
                                warmup_steps=warmup_steps,
-                               decay_steps=decay_steps)
+                               decay_steps=decay_steps, ema_decay=ema_decay)
     log_lr = lr_schedule != "constant" or warmup_steps
     print(f"Number of trainable parameters: "
           f"{sum(p.numel() for p in model.parameters()):,}")
-    train_fn = make_train_step(model, pos_weight, device=dev)
+    train_fn = make_train_step(model, pos_weight, accum_steps=accum_steps,
+                               ema_decay=ema_decay, device=dev)
     eval_fn = make_eval_step(model, pos_weight, device=dev)
+    ema_eval_fn = (make_eval_step(state.ema_model, pos_weight, device=dev)
+                   if ema_decay else None)
+    # the last ema_bn_recal training batches (microbatch 0 of a stack), on
+    # the device, for the EMA's BN recalibration before each validation
+    recal_window = (collections.deque(maxlen=ema_bn_recal)
+                    if ema_decay and ema_bn_recal > 0 else None)
 
     ckpt = CheckpointManager(os.path.join(logdir, "ckpts"))
     # None until a validation: the first one always writes model_best.pt,
@@ -219,9 +259,8 @@ def train(
     counter, start_epoch, best_val_iou = 0, 0, None
     if resume is not None:
         restored = load_checkpoint(resume)
-        model.load_state_dict(restored["model_state_dict"])
-        state.optimizer.load_state_dict(restored["optimizer_state_dict"])
-        counter = state.step = int(restored["counter"])
+        restore_train_state(state, restored)
+        counter = state.step
         start_epoch = int(restored["epoch"])
         # periodic checkpoints carry no val_iou: consult the best files,
         # or a resumed run would overwrite a better saved model
@@ -234,6 +273,10 @@ def train(
         print(f"Resumed from step {counter}, epoch {start_epoch} "
               f"(best val IoU so far {best_val_iou})")
     start_counter = counter
+
+    def save(save_fn, *args):
+        save_fn(counter, model, state.optimizer, *args,
+                ema_model=state.ema_model)
 
     preempted = False
 
@@ -258,10 +301,14 @@ def train(
         for epoch in range(start_epoch, nepochs):
             # epoch e always draws shuffle order seed + e, resumed or not
             trainloader.set_epoch(epoch)
-            for batch in prefetch_to_device(iter(trainloader), dev):
+            batches = stack_microbatches(iter(trainloader), accum_steps)
+            for batch in prefetch_to_device(batches, dev):
                 metrics = train_fn(state, batch)
                 counter += 1
                 window_steps += 1
+                if recal_window is not None:
+                    recal_window.append(batch[:6] if accum_steps == 1 else
+                                        tuple(x[0] for x in batch[:6]))
                 if counter % 10 == 0:
                     logger.scalars(counter, **{
                         "train/loss": float(metrics["loss"])})
@@ -271,7 +318,8 @@ def train(
                     step_time = (time.perf_counter() - window_start) / window_steps
                     scalars = {"train/iou": iou, "train/epoch": epoch,
                                "train/step_time": step_time,
-                               "train/samples_per_sec": bsz / step_time}
+                               "train/samples_per_sec":
+                                   bsz * accum_steps / step_time}
                     if log_lr:
                         scalars["train/lr"] = state.schedule(counter)
                     logger.scalars(counter, **scalars)
@@ -281,26 +329,36 @@ def train(
                     window_start, window_steps = time.perf_counter(), 0
 
                 if val_step and counter % val_step == 0:
-                    val_info = get_val_info(eval_fn, state, valloader, dev)
+                    if ema_decay:
+                        if recal_window:
+                            recalibrate_bn(state.ema_model, recal_window)
+                        val_info = get_val_info(ema_eval_fn, state, valloader, dev)
+                        raw_info = get_val_info(eval_fn, state, valloader, dev)
+                    else:
+                        val_info = get_val_info(eval_fn, state, valloader, dev)
                     val_scalars = {"val/loss": val_info["loss"],
                                    "val/iou": val_info["iou"]}
+                    if ema_decay:
+                        val_scalars["val/loss_raw"] = raw_info["loss"]
+                        val_scalars["val/iou_raw"] = raw_info["iou"]
                     for ci, v in enumerate(val_info.get("iou_per_class", [])):
                         val_scalars[f"val/iou_c{ci}"] = v
                     logger.scalars(counter, **val_scalars)
                     print(f"  validation: loss={val_info['loss']:.4f} "
-                          f"iou={val_info['iou']:.4f}")
+                          f"iou={val_info['iou']:.4f}"
+                          + (f" raw_iou={raw_info['iou']:.4f}" if ema_decay
+                             else ""))
                     if best_val_iou is None or val_info["iou"] > best_val_iou:
                         best_val_iou = val_info["iou"]
-                        ckpt.save_best(counter, model, state.optimizer, epoch,
-                                       best_val_iou)
+                        save(ckpt.save_best, epoch, best_val_iou)
                         print(f"  new best IoU {best_val_iou:.4f} (saved)")
                     window_start, window_steps = time.perf_counter(), 0
 
                 if save_step and counter % save_step == 0:
-                    ckpt.save(counter, model, state.optimizer, epoch)
+                    save(ckpt.save, epoch)
                     window_start, window_steps = time.perf_counter(), 0
                 if preempted:
-                    ckpt.save(counter, model, state.optimizer, epoch)
+                    save(ckpt.save, epoch)
                     stop = True
                     break
                 if max_steps is not None and counter >= max_steps:
@@ -317,8 +375,8 @@ def train(
     if not preempted:
         # completion records epoch=nepochs (reference semantics); an early
         # stop records the true epoch, so a resume continues
-        ckpt.save_final(counter, model, state.optimizer,
-                        nepochs if early_stop_epoch is None else early_stop_epoch)
+        save(ckpt.save_final,
+             nepochs if early_stop_epoch is None else early_stop_epoch)
     print(f"Best validation IoU: {best_val_iou}")
     return {"counter": counter, "start_counter": start_counter,
             "best_val_iou": best_val_iou, "state": state}

@@ -15,14 +15,22 @@ the moments, as ``add_decayed_weights`` does. The clip is optax's: scale by
 (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and is not used).
 The schedule's value for update ``count`` (0 for the first) is set as the
 learning rate before each step, as optax's ``scale_by_learning_rate``
-reads its count. No EMA yet (ROADMAP.md A5).
+reads its count.
+
+EMA (``ema_decay > 0``): ``TrainState.ema_model`` is a copy of the model
+whose parameters and BN running stats hold the exponential moving average
+of the trained model's (the JAX state's ``ema_params`` and
+``ema_batch_stats``); ``ema_update`` advances it after each optimizer
+step, and validation and serving read it. ``restore_train_state`` loads a
+checkpoint with or without an EMA into a run with or without one.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
-from typing import Callable, Iterable, List
+from typing import Callable, Iterable, List, Optional
 
 import torch
 from torch import nn
@@ -140,20 +148,73 @@ def make_optimizer(params: Iterable[nn.Parameter], lr: float = 1e-3,
 @dataclasses.dataclass
 class TrainState:
     """The model, its optimizer, the update count (``step``, the
-    reference's ``counter``) and the learning-rate schedule."""
+    reference's ``counter``), the learning-rate schedule and, with EMA on,
+    the averaged copy of the model (else None)."""
     model: nn.Module
     optimizer: Optimizer
     step: int = 0
+    ema_model: Optional[nn.Module] = None
 
     @property
     def schedule(self) -> Schedule:
         return self.optimizer.schedule
 
 
+def averaged_tensors(model: nn.Module) -> List[torch.Tensor]:
+    """What the EMA averages, in a fixed order: every parameter and every
+    BN running mean and variance (the JAX ``params`` and
+    ``batch_stats``)."""
+    return list(model.parameters()) + [
+        b for name, b in model.named_buffers()
+        if name.endswith((".running_mean", ".running_var"))]
+
+
+@torch.no_grad()
+def ema_update(state: TrainState, decay: float) -> None:
+    """One EMA step over the (already updated) model, in place:
+    ``ema <- d ema + (1 - d) x`` for every averaged tensor, with the
+    warm-up ramp ``d = min(decay, (1 + t) / (10 + t))``, t = ``state.step``:
+    the update count after this step, 1 at the first (the JAX package
+    reads flax's step after ``apply_gradients`` has advanced it)."""
+    t = float(state.step)
+    d = min(decay, (1.0 + t) / (10.0 + t))
+    ema = averaged_tensors(state.ema_model)
+    torch._foreach_mul_(ema, d)
+    torch._foreach_add_(ema, averaged_tensors(state.model), alpha=1.0 - d)
+
+
 def create_train_state(model: nn.Module, lr: float = 1e-3,
                        weight_decay: float = 1e-7, max_grad_norm: float = 5.0,
                        lr_schedule: str = "constant", warmup_steps: int = 0,
-                       decay_steps: int = 0) -> TrainState:
+                       decay_steps: int = 0,
+                       ema_decay: float = 0.0) -> TrainState:
+    """``ema_decay > 0`` seeds the EMA with a copy of the model (same
+    device, no gradients): its parameters and BN running stats."""
+    ema_model = None
+    if ema_decay > 0:
+        ema_model = copy.deepcopy(model).requires_grad_(False)
     return TrainState(model, make_optimizer(
         model.parameters(), lr, weight_decay, max_grad_norm, lr_schedule,
-        warmup_steps, decay_steps))
+        warmup_steps, decay_steps), ema_model=ema_model)
+
+
+def restore_train_state(state: TrainState, ckpt: dict) -> None:
+    """Load a checkpoint dict (``utils/checkpoint.py``) into ``state`` in
+    place: the model, the optimizer and ``step`` (= ``counter``).
+
+    Tolerant of EMA either way, as the JAX ``restore_train_state``: a run
+    with EMA restores ``ema_state_dict`` where the checkpoint has one and
+    seeds the EMA from the restored model where it has none; a run without
+    EMA ignores the checkpoint's."""
+    state.model.load_state_dict(ckpt["model_state_dict"])
+    state.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+    state.step = int(ckpt["counter"])
+    has_ema = "ema_state_dict" in ckpt
+    if state.ema_model is not None:
+        if not has_ema:
+            print("checkpoint has no EMA; seeding the EMA from the restored "
+                  "weights")
+        state.ema_model.load_state_dict(
+            ckpt["ema_state_dict"] if has_ema else state.model.state_dict())
+    elif has_ema:
+        print("checkpoint carries an EMA this run does not track; dropped")

@@ -16,6 +16,7 @@ import torch
 from lss_carla_torch.training.loss import (bce_with_logits,
                                            get_batch_iou_counts,
                                            masked_eval_metrics)
+from lss_carla_torch.training.state import ema_update
 from lss_carla_torch.utils.backend import resolve_device
 
 
@@ -27,31 +28,58 @@ def to_device(batch, device: torch.device):
 
 
 def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
-                    device="cuda"):
+                    ema_decay: float = 0.0, device="cuda"):
     """Returns ``train_step(state, batch) -> metrics``.
 
     ``batch`` is the reference 7-tuple (imgs, rots, trans, intrins,
     post_rots, post_trans, binimgs). metrics = {loss, intersect, union,
-    grad_norm} as device scalars, from the logits before the update."""
-    if accum_steps > 1:
-        raise NotImplementedError(
-            "gradient accumulation (accum_steps > 1) is not ported yet "
-            "(ROADMAP.md A4, gradient accumulation)")
+    grad_norm} as device scalars, from the logits before the update.
+
+    ``accum_steps > 1``: gradient accumulation (the JAX ``accum_scan``).
+    Each batch entry carries a leading (accum_steps, ...) microbatch axis
+    (``data.loader.stack_microbatches``). The microbatches run in turn at
+    the same parameters; BN running stats update in turn, as consecutive
+    steps would; dropout draws afresh for each. The gradients are summed,
+    divided by ``accum_steps``, clipped once and applied in one Adam
+    update. loss is the microbatches' mean, intersect and union their sums.
+
+    ``ema_decay > 0`` advances ``state.ema_model`` after the update
+    (``training/state.py::ema_update``); the state must have been made with
+    ``create_train_state(..., ema_decay=...)``."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = resolve_device(device)
 
-    def train_step(state, batch):
-        imgs, rots, trans, intrins, post_rots, post_trans, binimgs = \
-            to_device(batch[:7], dev)
-        model.train()
-        state.optimizer.zero_grad()
+    def micro_step(micro):
+        imgs, rots, trans, intrins, post_rots, post_trans, binimgs = micro
         logits = model(imgs, rots, trans, intrins, post_rots, post_trans)
         loss = bce_with_logits(logits, binimgs, pos_weight)
         loss.backward()
+        intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
+        return loss.detach(), intersect, union
+
+    def train_step(state, batch):
+        batch = to_device(batch[:7], dev)
+        model.train()
+        state.optimizer.zero_grad()
+        if accum_steps == 1:
+            loss, intersect, union = micro_step(batch)
+        else:
+            if batch[0].shape[0] != accum_steps:
+                raise ValueError(f"batch has {batch[0].shape[0]} microbatches, "
+                                 f"accum_steps is {accum_steps}")
+            parts = [micro_step(tuple(x[i] for x in batch))
+                     for i in range(accum_steps)]
+            loss, intersect, union = (sum(p) for p in zip(*parts))
+            loss = loss / accum_steps
+            grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+            torch._foreach_div_(grads, float(accum_steps))
         grad_norm = state.optimizer.step(state.step)
         state.step += 1
-        intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
-        return {"loss": loss.detach(), "intersect": intersect,
-                "union": union, "grad_norm": grad_norm}
+        if ema_decay > 0:
+            ema_update(state, ema_decay)
+        return {"loss": loss, "intersect": intersect, "union": union,
+                "grad_norm": grad_norm}
 
     return train_step
 

@@ -11,6 +11,9 @@ with ``load_state_dict``:
   weight/bias/running_mean/running_var, and ``num_batches_tracked`` is
   filled with 0. The map takes ``variant`` (the JAX map is hard-wired to
   B0).
+* ``jax_ema_to_state_dict(ema_params, ema_batch_stats, variant)``: a JAX
+  train state's EMA (``ema_params``, ``ema_batch_stats``) -> an
+  ``ema_state_dict`` for the port's checkpoints, through the same map.
 * ``reference_state_dict(state_dict)``: a reference LSS-Carla ``.pt``
   state dict, minus what the port does not hold (the unused trunk head
   ``_conv_head``/``_bn1``/``_fc`` and the ``dx``/``bx``/``nx``/``frustum``
@@ -145,6 +148,15 @@ def variables_to_state_dict(variables: dict, names: NameMap) -> dict:
 def jax_variables_to_state_dict(variables: dict, variant: str = "b0") -> dict:
     """JAX ``LiftSplatShoot`` variables -> the port's state dict."""
     return variables_to_state_dict(variables, name_map(variant))
+
+
+def jax_ema_to_state_dict(ema_params: dict, ema_batch_stats: dict,
+                          variant: str = "b0") -> dict:
+    """A JAX ``TrainState``'s ``ema_params`` and ``ema_batch_stats``
+    (nested numpy dicts) -> the port's ``ema_state_dict``."""
+    return variables_to_state_dict(
+        {"params": ema_params, "batch_stats": ema_batch_stats},
+        name_map(variant))
 
 
 _SKIP = re.compile(

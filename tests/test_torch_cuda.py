@@ -327,3 +327,91 @@ def test_dw_kernel_is_one_device_activity_a_call(cuda):
             break
     assert len(keys) == 1 and "dw_conv_stats_kernel" in keys.pop(), keys
     assert max(counts) > 0, counts
+
+
+def _b4_dw_shapes(N=24, H=64, W=176):
+    """{(k, s, (N, C, H, W)): blocks} of the B4 trunk's depthwise convs
+    from the stem's output (6 cameras at 128 x 352 -> 64 x 176)."""
+    from lss_carla_torch.models.efficientnet import block_plan
+    shapes = {}
+    for i, a in enumerate(block_plan("b4")):
+        key = (a["kernel"], a["stride"], (N, a["cin"] * a["expand"], H, W))
+        shapes.setdefault(key, []).append(i)
+        H, W = -(-H // a["stride"]), -(-W // a["stride"])
+    return shapes
+
+
+# the first, a stride-2 band case, and the widest late planes (C 1,632 and
+# 2,688 at 4 x 11: several images packed a block)
+B4_DW_CASES = [(3, 1, (24, 48, 64, 176)), (5, 2, (24, 960, 8, 22)),
+               (5, 1, (24, 1632, 4, 11)), (3, 1, (24, 2688, 4, 11))]
+
+
+@pytest.mark.parametrize("k,s,shape", B4_DW_CASES)
+def test_dw_kernel_b4_shapes_bf16(cuda, k, s, shape):
+    """The kernel in bf16 at B4's shapes against its plain version, with
+    the launch counted as bf16."""
+    assert (k, s, shape) in _b4_dw_shapes()
+    g = torch.Generator(device="cuda").manual_seed(shape[1])
+    x = torch.randn(*shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = 0.3 * torch.randn(shape[1], 1, k, k, generator=g, device=cuda)
+    before = dict(mbconv_cuda.launches_by_dtype)
+    y, s1, s2 = mbconv_cuda.dw_conv_stats_forward(x, w, s)
+    torch.cuda.synchronize()
+    assert mbconv_cuda.launches_by_dtype["bfloat16"] == before["bfloat16"] + 1
+    assert mbconv_cuda.launches_by_dtype["float32"] == before["float32"]
+    ry, rs1, rs2 = M.dw_conv_stats_reference(x, w, s)
+    bound = _dw_tolerance(x, w, s) + 2.0 ** -8 * ry.float().abs()
+    assert y.dtype == torch.bfloat16
+    assert ((y.float() - ry.float()).abs() <= bound).all()
+    n = ry.numel() // ry.shape[1]
+    y32 = M.dw_conv_stats_reference(x, w, s)[0].float()
+    assert ((s1 - rs1).abs() <= 2 * n * 2.0 ** -24 * y32.abs().sum((0, 2, 3))
+            + 1e-5).all()
+    assert ((s2 - rs2).abs() <= 2 * n * 2.0 ** -24 * rs2.abs() + 1e-5).all()
+
+
+def test_launch_counters_by_dtype(cuda):
+    """Each wrapper counts its launches by input dtype beside the total;
+    reset_launches zeroes both."""
+    for mod in (splat_cuda, mbconv_cuda):
+        mod.reset_launches()
+        assert mod.launches == 0 and set(mod.launches_by_dtype.values()) == {0}
+    ids = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    x = torch.randn(2, 4, 8, 8, device=cuda)
+    w = torch.randn(4, 1, 3, 3, device=cuda)
+    for dtype in (torch.float32, torch.bfloat16, torch.bfloat16):
+        splat_cuda.splat_forward(torch.ones(1, 8, 4, device=cuda, dtype=dtype), ids, 4)
+        mbconv_cuda.dw_conv_stats_forward(x.to(dtype), w, 1)
+    for mod in (splat_cuda, mbconv_cuda):
+        assert mod.launches == 3
+        assert mod.launches_by_dtype == {"float32": 1, "bfloat16": 2}
+
+
+def test_bf16_model_launches_bf16_kernels(cuda):
+    """A bf16 slim LSS with fused_dw, one train step on the card: every
+    kernel launch is bf16, one depthwise launch a block and one splat."""
+    from lss_carla_torch.models.efficientnet import block_plan
+    from lss_carla_torch.training.state import create_train_state
+    from lss_carla_torch.training.step import make_train_step
+    grid = GridConf(xbound=(-40.0, 40.0, 5.0), ybound=(-40.0, 40.0, 5.0),
+                    zbound=(-10.0, 10.0, 20.0), dbound=(4.0, 36.0, 8.0))
+    aug = DataAugConf(H=64, W=128, final_dim=(32, 64))
+    model = compile_model(grid, aug, variant="slim", fused_dw=True,
+                          compute_dtype="bfloat16", device=cuda)
+    B, N = 2, 6
+    eye = torch.eye(3, device=cuda).expand(B, N, 3, 3).contiguous()
+    intr = eye * 60.0
+    intr[..., 2, 2] = 1.0
+    batch = (torch.randn(B, N, 3, 32, 64, device=cuda), eye,
+             torch.zeros(B, N, 3, device=cuda), intr, eye,
+             torch.zeros(B, N, 3, device=cuda),
+             (torch.rand(B, 1, 16, 16, device=cuda) < 0.2).float())
+    for mod in (splat_cuda, mbconv_cuda):
+        mod.reset_launches()
+    metrics = make_train_step(model, device=cuda)(create_train_state(model), batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(metrics["loss"])
+    assert mbconv_cuda.launches_by_dtype == {"float32": 0,
+                                             "bfloat16": len(block_plan("slim"))}
+    assert splat_cuda.launches_by_dtype == {"float32": 0, "bfloat16": 1}

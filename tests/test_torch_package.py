@@ -40,6 +40,7 @@ def test_import_pulls_in_no_jax():
     assert out.returncode == 0, out.stderr
     assert {"lss_carla_torch.ops.splat_cuda", "lss_carla_torch.ops.mbconv_cuda",
             "lss_carla_torch.ops.mbconv", "lss_carla_torch.training.loop",
+            "lss_carla_torch.training.bn_recal", "lss_carla_torch.training.state",
             "lss_carla_torch.training.step", "lss_carla_torch.data.simbev",
             "lss_carla_torch.data.loader", "lss_carla_torch.utils.checkpoint",
             "lss_carla_torch.train"} <= set(modules)

@@ -307,14 +307,17 @@ def test_train_checkpoints_and_resume(fixture_root, tmp_path, fused_dw,
 
 
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
-    with pytest.raises(NotImplementedError, match="A4, gradient accumulation"):
-        train(fixture_root, **TINY, accum_steps=2, logdir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A5, EMA"):
-        train(fixture_root, **TINY, ema_decay=0.999, logdir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="A5, --pretrained_trunk"):
+        train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="A9, parallel modes"):
+        train(fixture_root, **TINY, n_devices=8, logdir=str(tmp_path))
     with pytest.raises(TypeError, match="unexpected"):
         train(fixture_root, **TINY, no_such_flag=1, logdir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="accumulation"):
-        make_train_step(torch.nn.Linear(1, 1), accum_steps=2, device="cpu")
+    # 6 train batches an epoch: a stack of 7 never fills
+    with pytest.raises(ValueError, match="accum_steps=7 exceeds"):
+        train(fixture_root, **TINY, accum_steps=7, logdir=str(tmp_path))
+    with pytest.raises(ValueError, match="accum_steps"):
+        make_train_step(torch.nn.Linear(1, 1), accum_steps=0, device="cpu")
     from lss_carla_torch.train import main
     with pytest.raises(SystemExit):
-        main(["--dataroot", str(fixture_root), "--ema_decay", "0.99"])
+        main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto"])

@@ -80,7 +80,30 @@ exits non-zero without the final result line:
     the bsz-4 B4 stretch step and the bsz-4 B0 default step in bf16,
     timed in turns against f32 with cuDNN TF32; the device idle share of
     phase 12's loop and a profile of the recipe's bf16 step (two
-    microbatches), with the BEV ``up2`` conv's device time and launches.
+    microbatches), with the BEV ``up2`` conv's device time and launches;
+14. the ResNet-18 trunk at full width (the flagship config): a bsz-8 uint8
+    artifact served over HTTP against a direct ``load_predict`` call, card
+    against CPU at bsz 1 (TF32 off), ms per sample at bsz 8; ``train()``
+    20 steps at bsz 4 in f32 on phase 8's fixture with one train and one
+    validation figure (their predictions, where matplotlib is absent),
+    checkpoints, a resume, splat launches and no depthwise launch; the
+    bsz-4 step (f32 + cuDNN TF32) in turns with B0's, each profiled
+    (device activities a step, busy, idle share); ResNet-34 at bsz 1, card
+    against CPU;
+15. the explore tools on the card: ``eval_model_iou`` on phase 14's
+    ``model_best.pt`` and on phase 12's (``--best --ema``, B4 bf16 at 400 x
+    400, 4 classes) reproduces the ``val/loss`` and ``val/iou`` that
+    ``train()`` logged at that step; ``splat_check`` on a fixture batch at
+    full width (phase 8's B0 ``model_best.pt``, bsz 2), kernel against plain
+    version; the predictions
+    of ``viz_model_preds`` and the frustum points of ``lidar_check``, with
+    their PNGs where matplotlib imports;
+16. the watchdog and ``--supervise`` as a subprocess at reduced size (B0,
+    32 x 64 images, a 16 x 16 grid): ``python -m lss_carla_torch.train
+    --supervise 1 --watchdog_secs 5 --debug_stall_at 3 --save_step 2
+    --max_steps 6``: the first child stalls at step 3, dumps its stacks
+    and exits 42 about 10 s later; the second resumes from step 2 and
+    ends at 6; the supervisor returns 0.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -110,6 +133,7 @@ import torch
 import torch.nn.functional as F
 
 from kernel_compare import queued_ms
+from lss_carla_torch import explore
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.data.fixtures import generate_fixture
 from lss_carla_torch.data.loader import compile_data
@@ -122,6 +146,7 @@ from lss_carla_torch.ops.splat import splat_reference, voxel_indices
 from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
 from lss_carla_torch.serving import _main as export_cli
+from lss_carla_torch.training import loop
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.training.state import create_train_state
 from lss_carla_torch.training.step import make_train_step
@@ -781,7 +806,7 @@ def read_metrics(path):
 
 def phase_training(tmp, seed):
     """Phase 8. Returns (fixture root, dw launches, splat launches, loop
-    wall ms per step over steps 11-20)."""
+    wall ms per step over steps 11-20, the run's logdir)."""
     t0 = time.perf_counter()
     root = generate_fixture(f"{tmp}/simbev", num_scenes=20, samples_per_scene=4,
                             H=224, W=480, seed=seed)
@@ -837,13 +862,14 @@ def phase_training(tmp, seed):
           f"checkpoints included); losses {loss_txt}; val {val_txt}; "
           f"launches: dw_conv_stats {dw_launches} (= {DW_PER_FORWARD} x "
           f"{TRAIN_STEPS} train forwards), splat {splat_launches} ({TRAIN_STEPS} train + "
-          f"{splat_launches - TRAIN_STEPS} validation forwards); checkpoints "
+          f"{splat_launches - TRAIN_STEPS} validation and val-figure forwards); "
+          f"checkpoints "
           f"{sorted(ckpts)}; resume from model_000010.pt continued at "
           f"{resumed['start_counter']} to {resumed['counter']}; model_best.pt "
           f"(step {ck['counter']}, val IoU {ck['val_iou']:.4f}) exported and "
           f"served one request (max |served - direct| {err:.3e}); loop wall "
           f"ms per step {step_txt} (per 10-step window)", flush=True)
-    return root, dw_launches, splat_launches, step_ms[-1]
+    return root, dw_launches, splat_launches, step_ms[-1], run
 
 
 def zero_dropout(model):
@@ -1175,7 +1201,7 @@ STRETCH_STEPS, STRETCH_VAL, STRETCH_RECAL, STRETCH_ACCUM = 10, 5, 2, 2
 
 def phase_stretch_training(tmp, seed):
     """Phase 12. Returns ({kernel: bf16 launches}, loop wall ms a step over
-    the last 5 steps)."""
+    the last 5 steps, the fixture root, the run's logdir)."""
     t0 = time.perf_counter()
     root = generate_fixture(f"{tmp}/simbev400", num_scenes=10, samples_per_scene=4,
                             H=224, W=480, grid=400, seed=seed)
@@ -1255,7 +1281,7 @@ def phase_stretch_training(tmp, seed):
           f"loop wall ms a step {', '.join(f'{v:.1f}' for v in step_ms)} (per "
           f"{STRETCH_VAL}-step window)", flush=True)
     counts = {k: v["bfloat16"] for k, v in launches.items()}
-    return counts, step_ms[-1]
+    return counts, step_ms[-1], root, run
 
 
 # bf16 against f32 on the card, the stretch model at bsz 1 in eval mode
@@ -1341,6 +1367,348 @@ def phase_bf16(card, seed, loop_step_ms):
           f"step)", flush=True)
     del step
     torch.cuda.empty_cache()
+
+
+# --- phases 14-16: the ResNet trunk, the explore tools, the watchdog ---
+
+RESNET_STEPS = 20
+# eval_model_iou against the val/loss and val/iou train() logged for the
+# same checkpoint on the same val set: only the order of the splat's
+# atomic sums differs (f32 TF32 off; the stretch model's bf16 rounds its
+# splat output once from an f32 sum in another order)
+EVAL_LOSS_RTOL, EVAL_IOU_ATOL = 1e-4, 1e-3
+# splat_check, kernel against plain splat on one batch in eval mode, f32
+# TF32 off: logits SERVE_TOL x max(1, max |logit|), as served logits; the
+# depthnet gradient SPLAT_GRAD_RTOL relative L2; the loss SPLAT_LOSS_RTOL
+SPLAT_GRAD_RTOL, SPLAT_LOSS_RTOL = 1e-3, 1e-5
+WATCHDOG_SECS = 5
+
+
+def have_matplotlib() -> bool:
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+class FigureCalls:
+    """Within ``with FigureCalls() as f:`` every figure ``train()`` makes
+    is recorded in ``f.calls`` as (step, tag, logits shape, logits finite)
+    once its prediction is made, whether or not it renders (matplotlib
+    may be absent)."""
+
+    def __enter__(self):
+        self.calls, self.saved = [], loop._figure
+
+        def record(logger, step, tag, batch, logits, title, extent):
+            self.calls.append((step, tag, tuple(logits.shape),
+                               bool(torch.isfinite(logits).all())))
+            return self.saved(logger, step, tag, batch, logits, title, extent)
+        loop._figure = record
+        return self
+
+    def __exit__(self, *exc):
+        loop._figure = self.saved
+
+
+def resnet_model(variant: str, seed: int):
+    """A ResNet LSS at the flagship config on the CPU, eval mode, with
+    seeded weights and BN statistics."""
+    gen = torch.Generator().manual_seed(seed)
+    model = compile_model(GridConf(), DataAugConf(), outC=1, variant=variant,
+                          device="cpu", generator=gen)
+    randomize_bn(model, gen)
+    return model.eval()
+
+
+def card_vs_cpu(name, path, rng):
+    """Card against CPU at bsz 1 through the artifact at ``path`` (f32,
+    TF32 off). Returns (max |diff|, scale)."""
+    one = inputs(rng, 1, uint8=True)
+    x = (one[0].astype(np.float32),) + one[1:]
+    return assert_close(name, load_predict(path, device="cuda")(*x).cpu().numpy(),
+                        load_predict(path, device="cpu")(*x).numpy(), CPU_TOL)
+
+
+def phase_resnet(tmp, root, rng, seed, card):
+    """Phase 14. Returns (splat launches of its main paths: serving and
+    train(), the train run's logdir)."""
+    # (a) serving at full width
+    model = resnet_model("resnet18", seed).cuda()
+    path1, path8 = f"{tmp}/r18_bsz1.pt", f"{tmp}/r18_bsz8_u8.pt"
+    export_predict(model, path1, bsz=1)
+    export_predict(model, path8, bsz=8, uint8_images=True)
+    many = inputs(rng, 8, uint8=True)
+    reset_launches()  # the ResNet serving path starts here
+    with Running(serve(path8, port=0, warmup_args=many, device="cuda")) as base:
+        got = post(base, many)
+    serve_launches, dw = splat_cuda.launches, mbconv_cuda.launches  # ends
+    assert serve_launches > 0 and dw == 0, (serve_launches, dw)
+    want = load_predict(path8, device="cuda")(*many).cpu().numpy()
+    err8, scale8 = assert_close("resnet18 served", got, want, SERVE_TOL)
+    errc, scalec = card_vs_cpu("resnet18 card vs cpu", path1, rng)
+    dev8 = [torch.as_tensor(a).cuda() for a in many]
+    ms8 = {}
+    with torch.inference_mode():
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            ms8[tf32] = cuda_ms(lambda: model(*dev8), iters=20)
+    torch.backends.cudnn.allow_tf32 = False
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"resnet18 serving: {n_params:,} parameters; one bsz-8 uint8 request "
+          f"over HTTP, logits {got.shape}, finite, max |served - direct| "
+          f"{err8:.3e} (tolerance {SERVE_TOL} x {scale8:.3f}); splat launches "
+          f"{serve_launches}, dw_conv_stats 0; card vs CPU (bsz 1, f32, TF32 "
+          f"off): max |diff| {errc:.3e} (tolerance {CPU_TOL} x {scalec:.3f}); "
+          f"times on {card}: inference_ms_per_sample_bsz8 {ms8[False] / 8:.4f} "
+          f"(cudnn TF32 off), {ms8[True] / 8:.4f} (TF32 on) (CUDA events, 20 "
+          f"bsz-8 forwards after 3, uint8 inputs on the card)", flush=True)
+    del model, dev8
+    torch.cuda.empty_cache()
+
+    # (b) train() at bsz 4, one train and one validation figure at step 20
+    run = f"{tmp}/r18run"
+    kw = dict(dataroot=str(root), nepochs=2, bsz=4, nworkers=6,
+              variant="resnet18", val_step=RESNET_STEPS, save_step=10,
+              iou_log_step=10, viz_step=RESNET_STEPS, seed=seed, device="cuda")
+    n_val = len(compile_data("unused", root, DataAugConf(), GridConf(), bsz=4,
+                             nworkers=0)[1])
+    reset_launches()  # the ResNet training path starts here
+    t0 = time.perf_counter()
+    with FigureCalls() as figs:
+        result = train(**kw, max_steps=RESNET_STEPS, logdir=run)
+    train_launches, dw = splat_cuda.launches, mbconv_cuda.launches
+    train_s = time.perf_counter() - t0  # and ends here
+    assert result["counter"] == RESNET_STEPS, result["counter"]
+    assert dw == 0, f"a ResNet model launched dw_conv_stats {dw} times"
+    # a forward a step, one a val batch, one a figure
+    assert train_launches == RESNET_STEPS + n_val + 2, (train_launches, n_val)
+    assert figs.calls == [(RESNET_STEPS, "train/visualization", (4, 1, 200, 200), True),
+                          (RESNET_STEPS, "val/visualization", (4, 1, 200, 200), True)
+                          ], figs.calls
+    recs = read_metrics(f"{run}/metrics.jsonl")
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    vals = [r for r in recs if "val/iou" in r]
+    assert len(losses) == RESNET_STEPS // 10 and all(map(math.isfinite, losses)), losses
+    assert len(vals) == 1 and all(map(math.isfinite, vals[0].values())), vals
+    ckpts = set(os.listdir(f"{run}/ckpts"))
+    for name in ("model_000010.pt", "model_000020.pt", "model_best.pt",
+                 "model_final.pt"):
+        assert name in ckpts, (name, sorted(ckpts))
+    resumed = train(**kw, max_steps=12, logdir=f"{tmp}/r18resumed",
+                    resume=f"{run}/ckpts/model_000010.pt")
+    assert resumed["start_counter"] == 10 and resumed["counter"] == 12, resumed
+    step_ms = [1e3 * r["train/step_time"] for r in recs if "train/step_time" in r]
+    print(f"resnet18 training: train() bsz 4 f32 (TF32 off), {RESNET_STEPS} "
+          f"steps in {train_s:.1f} s (validation, figures and checkpoints "
+          f"included); losses {', '.join(f'{v:.4f}' for v in losses)}; val "
+          f"loss {vals[0]['val/loss']:.4f} iou {vals[0]['val/iou']:.4f}; "
+          f"launches: splat {train_launches} ({RESNET_STEPS} train + {n_val} "
+          f"validation + 2 figure forwards), dw_conv_stats 0; figures at step "
+          f"{RESNET_STEPS}: {[c[1] for c in figs.calls]}, "
+          + ("rendered (matplotlib)" if have_matplotlib() else
+             "predictions computed, not rendered (no matplotlib here)")
+          + f"; checkpoints {sorted(ckpts)}; resume from model_000010.pt "
+          f"continued to {resumed['counter']}; loop wall ms a step "
+          f"{', '.join(f'{v:.1f}' for v in step_ms)} (per 10-step window)",
+          flush=True)
+
+    # (c) the bsz-4 step against B0's, f32 + cuDNN TF32, in turns
+    torch.backends.cudnn.allow_tf32 = True
+    batch = random_batch(rng, 4)
+    steps = {v: train_step_fn(False, seed, batch, variant=v)
+             for v in ("resnet18", "b0")}
+    windows = {v: [] for v in steps}
+    for v in ("resnet18", "b0", "b0", "resnet18"):
+        windows[v].append(cuda_ms(steps[v], iters=10, warmup=2))
+    print(f"times on {card}: bsz-4 train step, f32 + cuDNN TF32: " + "; ".join(
+        f"{v} {sum(w) / len(w):.3f} ms ({w[0]:.3f}, {w[1]:.3f})"
+        for v, w in windows.items())
+        + " (CUDA events, two windows of 10 steps after 2, in turns "
+        "resnet18/b0/b0/resnet18; inputs on the card)", flush=True)
+    for v in steps:
+        _, text = profile_train_step(steps[v], 3, (4, 256, 200, 200))
+        print(f"profile bsz-4 train step, {v}, f32 + cuDNN TF32: {text}",
+              flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    del steps, batch
+    torch.cuda.empty_cache()
+
+    # (d) ResNet-34 at bsz 1, card against CPU
+    model = resnet_model("resnet34", seed + 1)
+    path34 = f"{tmp}/r34_bsz1.pt"
+    export_predict(model, path34, bsz=1)
+    err34, scale34 = card_vs_cpu("resnet34 card vs cpu", path34, rng)
+    print(f"resnet34: {sum(p.numel() for p in model.parameters()):,} "
+          f"parameters; card vs CPU (bsz 1, f32, TF32 off): max |diff| "
+          f"{err34:.3e} (tolerance {CPU_TOL} x {scale34:.3f})", flush=True)
+    torch.cuda.empty_cache()
+    return serve_launches + train_launches, run
+
+
+def logged_best(run):
+    """(step, metrics record) of the validation that wrote the run's
+    model_best.pt."""
+    ck = torch.load(f"{run}/ckpts/model_best.pt", map_location="cpu",
+                    weights_only=True, mmap=True)
+    step = int(ck["counter"])
+    recs = [r for r in read_metrics(f"{run}/metrics.jsonl")
+            if r["step"] == step and "val/iou" in r]
+    assert len(recs) == 1, (step, recs)
+    return step, recs[0]
+
+
+def check_eval(name, run, info) -> str:
+    """eval_model_iou's ``info`` against the logged validation of the
+    step that wrote ``run``'s model_best.pt."""
+    step, rec = logged_best(run)
+    dloss = abs(info["loss"] - rec["val/loss"])
+    diou = abs(info["iou"] - rec["val/iou"])
+    assert math.isfinite(info["loss"]) and dloss <= EVAL_LOSS_RTOL * abs(rec["val/loss"]), (
+        name, info, rec)
+    assert diou <= EVAL_IOU_ATOL, (name, info, rec)
+    per_class = info.get("iou_per_class")
+    logged_c = [rec[k] for k in sorted(rec) if k.startswith("val/iou_c")]
+    return (f"{name} (model_best.pt, step {step}): loss {info['loss']:.6f} vs "
+            f"logged {rec['val/loss']:.6f} (|diff| {dloss:.3e}, limit "
+            f"{EVAL_LOSS_RTOL} relative), iou {info['iou']:.6f} vs logged "
+            f"{rec['val/iou']:.6f} (|diff| {diou:.3e}, limit {EVAL_IOU_ATOL})"
+            + (f", iou_per_class {[round(v, 6) for v in per_class]} vs logged "
+               f"{[round(v, 6) for v in logged_c]}" if per_class else ""))
+
+
+def phase_explore(tmp, root, b0_run, r18_run, root400, stretch_run):
+    """Phase 15. Returns the splat launches of the tools' main path
+    (eval_model_iou and the predictions of viz_model_preds)."""
+    reset_launches()  # the explore path starts here
+    info18 = explore.eval_model_iou(str(root), f"{r18_run}/ckpts", best=True,
+                                    variant="resnet18", bsz=4, nworkers=6,
+                                    device="cuda")
+    info_st = explore.eval_model_iou(
+        str(root400), f"{stretch_run}/ckpts", best=True, use_ema=True,
+        variant="b4", grid_conf=STRETCH_GRID, label_mode="multiclass",
+        compute_dtype="bfloat16", bsz=4, nworkers=6, device="cuda")
+    samples, _ = explore.model_preds(str(root), f"{r18_run}/ckpts", best=True,
+                                     max_batches=2, bsz=4, variant="resnet18",
+                                     device="cuda")
+    launches, dw = splat_cuda.launches, mbconv_cuda.launches  # it ends here
+    assert launches > 0 and dw == 0, (launches, dw)
+    print("eval_model_iou on the card: " + check_eval("resnet18", r18_run, info18)
+          + "; " + check_eval("stretch B4 bf16 --best --ema", stretch_run, info_st)
+          + f"; splat launches {launches}", flush=True)
+
+    assert len(samples) == 8, len(samples)  # 2 batches of 4, none padded
+    for imgs, gt, pred in samples:
+        assert imgs.shape == (6, 3, 128, 352) and gt.shape == pred.shape == (200, 200)
+        assert np.isfinite(pred).all() and 0.0 <= pred.min() <= pred.max() <= 1.0
+    geom = explore.frustum_points(str(root), device="cuda")
+    assert geom.shape == (6, 41, 8, 22, 3) and np.isfinite(geom).all(), geom.shape
+    if have_matplotlib():
+        n = explore.viz_model_preds(str(root), f"{r18_run}/ckpts", best=True,
+                                    outdir=f"{tmp}/viz", max_batches=2, bsz=4,
+                                    variant="resnet18", device="cuda")
+        path = explore.lidar_check(str(root), outdir=f"{tmp}/viz", device="cuda")
+        pngs = sorted(os.listdir(f"{tmp}/viz"))
+        assert n == 8 and len(pngs) == 9 and os.path.getsize(path) > 0, pngs
+        rendered = f"rendered {len(pngs)} PNGs (8 eval + lidar_check)"
+    else:
+        rendered = ("not rendered: no matplotlib here (the compute parts "
+                    "model_preds and frustum_points ran)")
+    print(f"viz_model_preds: {len(samples)} predictions (2 val batches of 4, "
+          f"none padded), finite, in [0, 1]; lidar_check: frustum points "
+          f"{geom.shape}, finite, x in [{geom[..., 0].min():.1f}, "
+          f"{geom[..., 0].max():.1f}] m; {rendered}", flush=True)
+
+    # phase 8's trained B0 (model_best.pt): a fresh model's head gives
+    # logits of ~1e-16, against which the logit limit would test nothing
+    before = splat_cuda.launches
+    res = explore.splat_check(str(root), bsz=2, variant="b0",
+                              checkpoint=f"{b0_run}/ckpts", best=True,
+                              device="cuda")
+    assert splat_cuda.launches - before == 1, "splat_check's kernel side"
+    a, b = res["kernel"], res["plain"]
+    max_logit = float(b["logits"].abs().max())
+    assert max_logit > 1e-3, f"logits of ~0 ({max_logit}) test nothing"
+    scale = max(1.0, max_logit)
+    dlogit = float((a["logits"] - b["logits"]).abs().max())
+    dgrad = float((a["grad"] - b["grad"]).norm() / b["grad"].norm())
+    dloss = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    assert dlogit <= SERVE_TOL * scale, (dlogit, scale)
+    assert dgrad <= SPLAT_GRAD_RTOL and dloss <= SPLAT_LOSS_RTOL, (dgrad, dloss)
+    print(f"splat_check (phase 8's B0 model_best.pt at full width, a fixture "
+          f"batch at bsz 2, eval mode, f32 TF32 off; max |logit| "
+          f"{max_logit:.3f}): kernel out.mean {a['out_mean']:.6f} grad.mean "
+          f"{a['grad_mean']:.6e} loss {a['loss']:.6f}; plain out.mean "
+          f"{b['out_mean']:.6f} grad.mean {b['grad_mean']:.6e} loss "
+          f"{b['loss']:.6f}; max |dlogit| {dlogit:.3e} (limit {SERVE_TOL} x "
+          f"{scale:.3f}), depthnet gradient relative L2 {dgrad:.3e} (limit "
+          f"{SPLAT_GRAD_RTOL}), |dloss| / loss {dloss:.3e} (limit "
+          f"{SPLAT_LOSS_RTOL}); the kernel side launched the kernel once, the "
+          f"plain side never", flush=True)
+    return launches
+
+
+def phase_supervise(tmp, seed):
+    """Phase 16: the stall drill through the training CLI, as a subprocess
+    in a session of its own (killed whole on a timeout)."""
+    import signal
+    root = generate_fixture(f"{tmp}/simbev16", num_scenes=5, samples_per_scene=2,
+                            H=64, W=128, grid=16, seed=seed)
+    logdir = f"{tmp}/drill"
+    cmd = [sys.executable, "-m", "lss_carla_torch.train", "--dataroot", str(root),
+           "--H", "64", "--W", "128", "--final_h", "32", "--final_w", "64",
+           "--xbound", "-50", "50", "6.25", "--ybound", "-50", "50", "6.25",
+           "--bsz", "2", "--nworkers", "2", "--nepochs", "3", "--val_step", "0",
+           "--viz_step", "0", "--iou_log_step", "1", "--seed", str(seed),
+           "--logdir", logdir, "--supervise", "1", "--watchdog_secs",
+           str(WATCHDOG_SECS), "--debug_stall_at", "3", "--save_step", "2",
+           "--max_steps", "6"]
+    t0 = time.monotonic()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    timer = threading.Timer(300, lambda: os.killpg(proc.pid, signal.SIGKILL))
+    timer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.monotonic() - t0, line.rstrip()))
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    text = "\n".join(ln for _, ln in lines)
+    tail = "\n".join(ln for _, ln in lines[-40:])
+
+    def first(needle):
+        hits = [t for t, ln in lines if needle in ln]
+        assert hits, f"no line with {needle!r}:\n{tail}"
+        return hits[0]
+    assert rc == 0, f"supervisor exit code {rc}:\n{tail}"
+    t_stall, t_warn = first("injected stall at step 3"), first("no step progress")
+    t_exit = first("child exited rc=42")
+    assert "Current thread" in text or "Thread 0x" in text, "no stacks dumped"
+    # the last beat (after the step-2 save) came just before the stall
+    assert t_exit - t_stall >= 2 * WATCHDOG_SECS - 0.5, (t_stall, t_exit)
+    attempts = [ln for _, ln in lines if ln.startswith("[supervise] attempt")]
+    assert len(attempts) == 2 and "--resume" not in attempts[0], attempts
+    assert attempts[1].endswith(f"--resume {logdir}/ckpts"), attempts[1]
+    first("Resumed from step 2")
+    first("child exited rc=0")
+    final = torch.load(f"{logdir}/ckpts/model_final.pt", map_location="cpu",
+                       weights_only=True)
+    assert int(final["counter"]) == 6, final["counter"]
+    print(f"watchdog and --supervise (subprocess, B0 at 32 x 64, 16 x 16 grid, "
+          f"--watchdog_secs {WATCHDOG_SECS}): stall at step 3 at "
+          f"{t_stall:.1f} s, stacks dumped at {t_warn:.1f} s, first child "
+          f"exited 42 at {t_exit:.1f} s ({t_exit - t_stall:.1f} s after the "
+          f"stall); the second started with --resume {logdir}/ckpts, resumed "
+          f"from step 2 and ended at step {int(final['counter'])}; supervisor "
+          f"exit code {rc}; {t_exit:.1f} + {lines[-1][0] - t_exit:.1f} s",
+          flush=True)
 
 
 def main_path_splat(model, many):
@@ -1462,7 +1830,8 @@ def main(argv=None) -> int:
 
         # 8. training at full width through train(); 9. card vs CPU
         at(8)
-        root, dw_launches, splat_train, loop_step_ms = phase_training(tmp, args.seed)
+        root, dw_launches, splat_train, loop_step_ms, b0_run = phase_training(
+            tmp, args.seed)
         at(9)
         phase_card_vs_cpu(root, args.seed)
 
@@ -1475,15 +1844,27 @@ def main(argv=None) -> int:
         at(11)
         stretch = phase_stretch_kernels(gen, args.seed)
         at(12)
-        stretch_launches, stretch_step_ms = phase_stretch_training(tmp, args.seed)
+        stretch_launches, stretch_step_ms, root400, stretch_run = \
+            phase_stretch_training(tmp, args.seed)
         at(13)
         phase_bf16(card, args.seed, stretch_step_ms)
-        at(14)  # the end
+
+        # 14. the ResNet trunk; 15. the explore tools; 16. the watchdog
+        at(14)
+        resnet_launches, r18_run = phase_resnet(tmp, root, rng, args.seed, card)
+        at(15)
+        explore_launches = phase_explore(tmp, root, b0_run, r18_run, root400,
+                                         stretch_run)
+        at(16)
+        phase_supervise(tmp, args.seed)
+        at(17)  # the end
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
-          f"training + {stretch_launches['splat']} stretch (bf16); "
-          f"dw_conv_stats {dw_launches} training + "
-          f"{stretch_launches['dw_conv_stats']} stretch (bf16)", flush=True)
+          f"training + {stretch_launches['splat']} stretch (bf16) + "
+          f"{resnet_launches} ResNet-18 serving and training + "
+          f"{explore_launches} explore tools; dw_conv_stats {dw_launches} "
+          f"training + {stretch_launches['dw_conv_stats']} stretch (bf16) + 0 "
+          f"ResNet + 0 explore (eval mode)", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def stretch_row(name):
@@ -1495,7 +1876,8 @@ def main(argv=None) -> int:
     kernels = [{"name": "splat", "route": "cuda",
                 "source": "lss_carla_torch/csrc/splat.cu",
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
-                "launches": launches + splat_train + stretch_launches["splat"],
+                "launches": (launches + splat_train + stretch_launches["splat"]
+                             + resnet_launches + explore_launches),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat")},
                {"name": "dw_conv_stats", "route": "cuda",

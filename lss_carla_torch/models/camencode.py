@@ -1,10 +1,13 @@
-"""Camera encoder: EfficientNet trunk + FPN fuse + depth-softmax lift.
+"""Camera encoder: EfficientNet or ResNet trunk + FPN fuse + depth-softmax lift.
 
 Counterpart of ``lss_carla_tpu/models/camencode.py`` (reference
 ``src/models.py:37-89``):
 
 * trunk endpoints reduction_5 (stride 32) and reduction_4 (stride 16) fused
-  by ``Up(.., 512)``, skip first;
+  by ``Up(.., 512)``, skip first; the trunk is EfficientNet b0-b4 (``slim``
+  for tests) or, for a ``variant`` starting "resnet", ``ResNetTrunk``
+  (``up1`` then takes 512 + 256 channels; ``fused_dw`` is ignored, as in
+  the JAX package);
 * Dropout(0.2), then a 1x1 ``depthnet`` conv with bias producing D + C
   channels;
 * softmax over the D depth channels, in f32, cast back to the compute
@@ -23,7 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from lss_carla_torch.models.efficientnet import EfficientNetTrunk, endpoint_channels
+from lss_carla_torch.models import efficientnet, resnet
 from lss_carla_torch.models.layers import Conv2d, Up
 
 
@@ -33,9 +36,13 @@ class CamEncode(nn.Module):
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.D, self.C = D, C
-        self.trunk = EfficientNetTrunk(variant, fused_dw=fused_dw,
-                                       compute_dtype=compute_dtype)
-        ch = endpoint_channels(variant)  # B4: 448 + 160 into up1
+        if variant.startswith("resnet"):
+            self.trunk = resnet.ResNetTrunk(variant, compute_dtype=compute_dtype)
+            ch = resnet.endpoint_channels(variant)
+        else:
+            self.trunk = efficientnet.EfficientNetTrunk(
+                variant, fused_dw=fused_dw, compute_dtype=compute_dtype)
+            ch = efficientnet.endpoint_channels(variant)  # B4: 448 + 160
         self.up1 = Up(ch["reduction_5"] + ch["reduction_4"], 512)
         self.dropout = nn.Dropout(0.2)
         self.depthnet = Conv2d(512, D + C, 1)

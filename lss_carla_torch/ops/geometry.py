@@ -1,8 +1,10 @@
 """Frustum and camera geometry (counterpart of ``lss_carla_tpu/ops/geometry.py``).
 
-``gen_dx_bx`` and ``create_frustum`` are host-side numpy, copied from the
-JAX package. ``get_geometry`` runs on tensors, always in f32, on whatever
-device its inputs are on.
+``gen_dx_bx``, ``create_frustum`` and ``get_rot`` are host-side numpy,
+copied from the JAX package. ``get_geometry`` runs on tensors, always in
+f32, on whatever device its inputs are on; ``ego_to_cam``, ``cam_to_ego``
+and ``get_only_in_img_mask`` project single cameras' point clouds, on
+tensors (``explore.lidar_check``, ``tools.py``).
 
 Coordinate conventions (reference + SimBEV): frustum cells hold
 (pixel_x, pixel_y, depth_m) in final (post-augmentation) image coordinates;
@@ -73,3 +75,38 @@ def get_geometry(frustum: torch.Tensor, rots: torch.Tensor, trans: torch.Tensor,
     combine = rots @ torch.linalg.inv_ex(intrins).inverse
     points = torch.einsum("bnij,bndhwj->bndhwi", combine, points)
     return points + trans[:, :, None, None, None, :]
+
+
+def get_rot(h) -> np.ndarray:
+    """2x2 rotation used by the augmentation homography (reference
+    ``tools.py:113-117``)."""
+    return np.array([
+        [np.cos(h), np.sin(h)],
+        [-np.sin(h), np.cos(h)],
+    ], dtype=np.float32)
+
+
+def ego_to_cam(points: torch.Tensor, rot: torch.Tensor, trans: torch.Tensor,
+               intrins: torch.Tensor) -> torch.Tensor:
+    """Project (3, N) ego-frame points into pinhole pixels (reference
+    ``tools.py:80-89``): rows (u, v, depth)."""
+    points = rot.T @ (points - trans[:, None])
+    points = intrins @ points
+    return torch.cat([points[:2] / points[2:3], points[2:3]], dim=0)
+
+
+def cam_to_ego(points: torch.Tensor, rot: torch.Tensor, trans: torch.Tensor,
+               intrins: torch.Tensor) -> torch.Tensor:
+    """Lift (3, N) pixel + depth points to the ego frame (reference
+    ``tools.py:92-102``)."""
+    points = torch.cat([points[:2] * points[2:3], points[2:3]], dim=0)
+    points = torch.linalg.inv(intrins) @ points
+    return rot @ points + trans[:, None]
+
+
+def get_only_in_img_mask(pts: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Mask of projected (3, N) points that fall inside an H x W image
+    (reference ``tools.py:105-110``)."""
+    return ((pts[2] > 0)
+            & (pts[0] > 1) & (pts[0] < W - 1)
+            & (pts[1] > 1) & (pts[1] < H - 1))

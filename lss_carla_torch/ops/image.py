@@ -1,7 +1,8 @@
 """Image-space ops (counterpart of ``lss_carla_tpu/ops/image.py``).
 
 ImageNet normalisation of uint8 images, on the device (``normalize_uint8``)
-or on the host (``normalize_img``, numpy), and the align_corners=True
+or on the host (``normalize_img``, numpy), its inverse for display
+(``denormalize_img``, numpy), and the align_corners=True
 bilinear upsample of the reference's ``Up`` blocks
 (reference ``src/models.py:19-20,108-110``). The JAX package writes the
 upsample as two interpolation matmuls; ``F.interpolate(mode="bilinear",
@@ -24,6 +25,12 @@ def normalize_img(img_u8: np.ndarray) -> np.ndarray:
     the host (the loader's ``device_normalize=False`` path)."""
     x = np.asarray(img_u8, dtype=np.float32) / 255.0
     return (x - IMAGENET_MEAN) / IMAGENET_STD
+
+
+def denormalize_img(x: np.ndarray) -> np.ndarray:
+    """Inverse of ``normalize_img``, clipped to [0, 1] (reference
+    ``tools.py:147-164``), channels last."""
+    return np.clip(np.asarray(x) * IMAGENET_STD + IMAGENET_MEAN, 0.0, 1.0)
 
 
 def normalize_uint8(x: torch.Tensor) -> torch.Tensor:

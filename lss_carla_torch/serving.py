@@ -118,7 +118,7 @@ def _main(argv=None):
 
         python -m lss_carla_torch.serving --checkpoint runs/x/ckpts --best \\
             --out /models/lss.pt [--ema] [--compute_dtype bfloat16] \\
-            [--uint8] [--bsz 8] [--variant b4]
+            [--uint8] [--bsz 8] [--variant b4|resnet18]
 
     ``--checkpoint`` is a ``.pt`` file or a run's checkpoint directory (its
     newest checkpoint, or ``model_best.pt`` with ``--best``). ``--ema``
@@ -148,7 +148,8 @@ def _main(argv=None):
     p.add_argument("--ncams", type=int, default=None,
                    help="serving camera count (default: full rig)")
     p.add_argument("--variant", default="b0",
-                   choices=("b0", "b1", "b2", "b3", "b4"))
+                   choices=("b0", "b1", "b2", "b3", "b4",
+                            "resnet18", "resnet34"))
     p.add_argument("--outC", type=int, default=1)
     p.add_argument("--H", type=int, default=224)
     p.add_argument("--W", type=int, default=480)

@@ -1,9 +1,16 @@
 """Training CLI of the port: ``train_simbev.py``'s flags that the port
-has, with the same names and defaults, plus ``--fused_dw`` and
-``--device``.
+has, with the same names and defaults, plus ``--device``.
 
     python -m lss_carla_torch.train --dataroot /data/SimBEV --bsz 4 \\
-        --nworkers 8 [--fused_dw] [--max_steps N]
+        --nworkers 8 [--variant resnet18] [--fused_dw] [--max_steps N]
+
+Unattended, with the stall watchdog and restarts (``--supervise R`` makes
+this process a supervisor that runs the trainer as a child and runs it
+again, resuming from ``<logdir>/ckpts``, after each of up to R watchdog
+exits; ``utils/supervise.py``):
+
+    python -m lss_carla_torch.train --dataroot /data/SimBEV \\
+        --watchdog_secs 300 --supervise 3 --async_save
 
 The stretch recipe (``configs/simbev_stretch.sh`` on one card: B4, a
 400 x 400 grid at 0.25 m, 4-class labels, bf16, cosine with warm-up, EMA
@@ -22,12 +29,12 @@ The JAX CLI's other flags are accepted only to say where they wait in
 from __future__ import annotations
 
 import argparse
+import sys
 
-from lss_carla_torch.training.loop import UNPORTED, train
+from lss_carla_torch.training.loop import UNPORTED, check_pretrained_trunk, train
 
-# train_simbev.py flags that wait in ROADMAP.md: train()'s, and one more
-_UNPORTED_FLAGS = {**{k: item for k, (_, item) in UNPORTED.items()},
-                   "supervise": "A5, the watchdog and --supervise"}
+# train_simbev.py flags that wait in ROADMAP.md
+_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -56,12 +63,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logdir", type=str, default="./runs/simbev")
     p.add_argument("--val_step", type=int, default=500)
     p.add_argument("--save_step", type=int, default=1000)
+    p.add_argument("--viz_step", type=int, default=100,
+                   help="a train figure every N steps and a val figure "
+                        "after each validation (0 = none)")
     p.add_argument("--resize_lim", type=float, nargs=2, default=(1.0, 1.0))
     p.add_argument("--bot_pct_lim", type=float, nargs=2, default=(0.0, 0.0))
     p.add_argument("--rot_lim", type=float, nargs=2, default=(0.0, 0.0))
     p.add_argument("--rand_flip", action="store_true", default=False)
     p.add_argument("--resume", type=str, default=None,
                    help="a checkpoint file, or a directory (its newest)")
+    p.add_argument("--use_wandb", action="store_true", default=False)
+    p.add_argument("--wandb_project", type=str, default="lift-splat-shoot")
+    p.add_argument("--wandb_name", type=str, default=None)
+    p.add_argument("--wandb_entity", type=str, default=None)
     p.add_argument("--lr_schedule", type=str, default="constant",
                    choices=["constant", "cosine", "linear"])
     p.add_argument("--warmup_steps", type=int, default=0)
@@ -90,14 +104,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host_normalize", action="store_true",
                    help="normalise images on the host instead of the device")
     p.add_argument("--variant", type=str, default="b0",
-                   choices=["b0", "b1", "b2", "b3", "b4"])
+                   choices=["b0", "b1", "b2", "b3", "b4", "resnet18",
+                            "resnet34"])
     p.add_argument("--fused_dw", action="store_true",
                    help="run each MBConv depthwise conv and its BN batch "
                         "moments in one pass (the CUDA kernel "
                         "csrc/dw_conv_stats.cu on the card)")
     p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--debug_stall_at", type=int, default=0,
+                   help="testing only: hang at this step (after the first "
+                        "--save_step, so a restart can --resume) to drill "
+                        "the watchdog and --supervise")
+    p.add_argument("--watchdog_secs", type=int, default=0,
+                   help="stall detector: dump the stacks after N s without "
+                        "step progress, exit 42 at 2N; 0 disables")
+    p.add_argument("--async_save", action="store_true",
+                   help="write periodic checkpoints in a background thread; "
+                        "best, final and preemption saves stay synchronous")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run there")
     p.add_argument("--iou_log_step", type=int, default=100)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--supervise", type=int, default=0,
+                   help="restart the run up to N times after a watchdog "
+                        "exit (code 42), resuming from <logdir>/ckpts once "
+                        "it holds a checkpoint (pair with --watchdog_secs)")
     for name in sorted(_UNPORTED_FLAGS):
         p.add_argument(f"--{name}", nargs="*", default=None,
                        help=argparse.SUPPRESS)
@@ -105,12 +136,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    """Parse the flags and train; with ``--supervise R``, supervise a child
+    trainer instead and return its exit code."""
     parser = build_parser()
     args = parser.parse_args(argv)
+    check_pretrained_trunk(args.pretrained_trunk, args.variant)
     given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
     if given:
         parser.error("not ported to lss_carla_torch yet: " + "; ".join(
             f"--{k} (ROADMAP.md {_UNPORTED_FLAGS[k]})" for k in given))
+    if args.supervise > 0:
+        from lss_carla_torch.utils.supervise import run_supervised
+        return run_supervised(args.supervise, args.logdir,
+                              argv=sys.argv[1:] if argv is None else argv)
     device = f"cuda:{args.gpuid}" if args.device == "cuda" else "cpu"
     train(
         dataroot=args.dataroot, nepochs=args.nepochs, H=args.H, W=args.W,
@@ -132,8 +170,14 @@ def main(argv=None):
                          if args.extrinsic_noise else None),
         device_normalize=not args.host_normalize, variant=args.variant,
         fused_dw=args.fused_dw, max_steps=args.max_steps,
-        iou_log_step=args.iou_log_step, seed=args.seed, device=device)
+        iou_log_step=args.iou_log_step, seed=args.seed, viz_step=args.viz_step,
+        use_wandb=args.use_wandb, wandb_project=args.wandb_project,
+        wandb_name=args.wandb_name, wandb_entity=args.wandb_entity,
+        profile_dir=args.profile_dir, watchdog_secs=args.watchdog_secs,
+        debug_stall_at=args.debug_stall_at, async_save=args.async_save,
+        device=device)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -17,6 +17,14 @@ recalibrated over the last ``ema_bn_recal`` training batches (microbatch
 0 of each, ``training/bn_recal.py``); the raw model's validation is logged
 beside it as ``val/loss_raw`` and ``val/iou_raw``.
 
+Observability and unattended runs, as in the JAX trainer: figures of
+sample 0 every ``viz_step`` steps and after each validation
+(``utils/viz.py`` through ``MetricLogger.figure``; only the rendering and
+logging are guarded, the prediction is not), wandb, a ``torch.profiler``
+trace of the run (``profile_dir``), the stall watchdog (``watchdog_secs``,
+``training/watchdog.py``) and background periodic checkpoints
+(``async_save``).
+
 Flags of the JAX trainer that the port does not have yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item (``UNPORTED``);
 none is ignored.
@@ -40,7 +48,9 @@ from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.training.bn_recal import recalibrate_bn
 from lss_carla_torch.training.state import (create_train_state,
                                             restore_train_state)
-from lss_carla_torch.training.step import make_eval_step, make_train_step
+from lss_carla_torch.training.step import (make_eval_step, make_predict_step,
+                                           make_train_step, to_device)
+from lss_carla_torch.training.watchdog import StallWatchdog
 from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from lss_carla_torch.utils.logging import MetricLogger
@@ -48,21 +58,12 @@ from lss_carla_torch.utils.logging import MetricLogger
 # keyword of the JAX trainer -> (its values that mean "off", ROADMAP.md item)
 UNPORTED = {
     "pretrained_trunk": ((None,), "A5, --pretrained_trunk"),
-    "use_wandb": ((False,), "A5, wandb and figures"),
-    "wandb_project": (("lift-splat-shoot",), "A5, wandb and figures"),
-    "wandb_name": ((None,), "A5, wandb and figures"),
-    "wandb_entity": ((None,), "A5, wandb and figures"),
-    "viz_step": ((0,), "A5, wandb and figures"),
     "n_devices": ((None, 1), "A9, parallel modes"),
     "multihost": ((False,), "A9, parallel modes"),
     "cam_devices": ((1,), "A9, parallel modes"),
     "grid_devices": ((1,), "A9, parallel modes"),
     "dataset": (("simbev",), "A7, the nuScenes loader"),
     "nuscenes_version": (("v1.0-mini",), "A7, the nuScenes loader"),
-    "profile_dir": ((None,), "A10, tools and bench"),
-    "watchdog_secs": ((0,), "A5, the watchdog and --supervise"),
-    "debug_stall_at": ((0,), "A5, the watchdog and --supervise"),
-    "async_save": ((False,), "A5, checkpoints"),
 }
 
 
@@ -79,10 +80,22 @@ def check_unported(**kwargs) -> None:
                 for k, v in sorted(on.items())))
 
 
-def get_val_info(eval_step, state, valloader, device=None) -> dict:
+def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
+    """The JAX trainer's first check: a trunk checkpoint is an
+    efficientnet_pytorch one, which no ResNet can take."""
+    if pretrained_trunk is not None and variant.startswith("resnet"):
+        raise ValueError("--pretrained_trunk imports efficientnet_pytorch "
+                         "weights; no import source exists for the "
+                         "resnet trunk variants")
+
+
+def get_val_info(eval_step, state, valloader, device=None,
+                 heartbeat=None) -> dict:
     """Run the whole val loader: mean loss and dataset IoU (reference
     ``src/tools.py:243-270``), plus ``iou_per_class`` for outC > 1. Sums
-    stay on the device until the end."""
+    stay on the device until the end; with ``heartbeat`` (the stall
+    watchdog's feed) each batch is synchronised and ``heartbeat()`` called
+    after it."""
     total = None
     it = iter(valloader)
     if device is not None:
@@ -90,6 +103,9 @@ def get_val_info(eval_step, state, valloader, device=None) -> dict:
     for batch in it:
         m = eval_step(state, batch)
         total = m if total is None else {k: total[k] + m[k] for k in m}
+        if heartbeat is not None:
+            float(m["batch"])  # the batch is done on the device
+            heartbeat()
     if total is None:
         raise ValueError("the val loader yielded no batch")
     total = {k: v.detach().cpu().numpy().astype(np.float64)
@@ -102,6 +118,25 @@ def get_val_info(eval_step, state, valloader, device=None) -> dict:
         info["iou_per_class"] = [float(i / u) if u > 0 else 1.0 for i, u in
                                  zip(total["intersect_c"], total["union_c"])]
     return info
+
+
+def _figure(logger, step: int, tag: str, batch, logits, title: str,
+            extent) -> None:
+    """Log the BEV figure of sample 0 of a device ``batch`` and its
+    ``logits``. The host copies come first and raise as any device error
+    does; a figure that fails to render or log is reported and training
+    goes on, as in the JAX trainer."""
+    imgs = batch[0][0].cpu().numpy()
+    gt = batch[6][0, 0].float().cpu().numpy()
+    pred = torch.sigmoid(logits[0, 0].float()).cpu().numpy()
+    try:
+        import matplotlib.pyplot as plt
+        from lss_carla_torch.utils.viz import make_bev_figure
+        fig = make_bev_figure(imgs, gt, pred, title=title, extent=extent)
+        logger.figure(step, tag, fig)
+        plt.close(fig)
+    except Exception as e:  # a figure must never kill training
+        print(f"  {tag} failed: {type(e).__name__}: {e}")
 
 
 def train(
@@ -135,8 +170,9 @@ def train(
     decay_steps: int = 0,             # 0 = auto: nepochs * optimizer steps
                                       # an epoch
     ema_decay: float = 0.0,           # > 0 (e.g. 0.999): an EMA of the
-                                      # model; validation, best-IoU and the
-                                      # checkpoints' ema_state_dict use it
+                                      # model; validation, best-IoU, the val
+                                      # figure and the checkpoints'
+                                      # ema_state_dict use it
     ema_bn_recal: int = 16,           # training batches the EMA's BN stats
                                       # are recalibrated over before each
                                       # validation (0 = the EMA'd stats)
@@ -146,11 +182,19 @@ def train(
     val_step: int = 500,
     save_step: int = 1000,
     resume: Optional[str] = None,     # a checkpoint file, or a directory
+    # observability
+    use_wandb: bool = False,
+    wandb_project: str = "lift-splat-shoot",
+    wandb_name: Optional[str] = None,
+    wandb_entity: Optional[str] = None,
+    viz_step: int = 100,              # a train figure every viz_step steps
+                                      # and a val figure after each
+                                      # validation (0 = none)
     iou_log_step: int = 100,
     seed: int = 42,
     splat_method: str = "scatter",
     compute_dtype: str = "float32",   # or "bfloat16" (models/lss.py)
-    variant: str = "b0",
+    variant: str = "b0",              # efficientnet b0-b4, resnet18/34
     fused_dw: bool = False,           # the depthwise conv + BN moments in
                                       # one pass (ops/mbconv.py)
     outC: int = 1,
@@ -160,6 +204,15 @@ def train(
     device_normalize: bool = True,    # ship uint8 images, normalise on the
                                       # device
     max_steps: Optional[int] = None,  # stop early (smoke and bench runs)
+    profile_dir: Optional[str] = None,  # a torch.profiler trace of the run
+    watchdog_secs: int = 0,           # stall detector (0 = off): dumps the
+                                      # stacks at N s, exits 42 at 2N
+    debug_stall_at: int = 0,          # testing only: hang at this step
+                                      # (unless resuming) to drill the
+                                      # watchdog and --supervise
+    async_save: bool = False,         # periodic checkpoints written in a
+                                      # background thread; best, final and
+                                      # preemption saves stay synchronous
     device="cuda",
     **unported,
 ):
@@ -173,6 +226,7 @@ def train(
 
     Returns {"counter", "start_counter", "best_val_iou" (None without a
     validation), "state"}."""
+    check_pretrained_trunk(unported.get("pretrained_trunk"), variant)
     check_unported(**unported)
     dev = resolve_device(device)
     torch.manual_seed(seed)
@@ -192,6 +246,8 @@ def train(
             raise ValueError(f"pos_weight takes 1 value or one per class "
                              f"(outC={outC}); got {len(pos_weight)}")
 
+    trunk_name = variant if variant.startswith("resnet") \
+        else f"efficientnet-{variant}"
     print("=" * 80)
     print("Training configuration:")
     print(f"  dataroot: {dataroot}")
@@ -199,8 +255,8 @@ def train(
     print(f"  device: {dev}  batch size: {bsz} x {accum_steps} microbatches")
     print(f"  lr: {lr}  epochs: {nepochs}  cams: {ncams}")
     print(f"  image: {H}x{W} -> {tuple(final_dim)}")
-    print(f"  trunk: efficientnet-{variant}  fused_dw: {fused_dw}  "
-          f"compute: {compute_dtype}")
+    print(f"  splat: {splat_method}  trunk: {trunk_name}  fused_dw: "
+          f"{fused_dw}  compute: {compute_dtype}")
     print("=" * 80)
 
     trainloader, valloader = compile_data(
@@ -252,8 +308,20 @@ def train(
     # the device, for the EMA's BN recalibration before each validation
     recal_window = (collections.deque(maxlen=ema_bn_recal)
                     if ema_decay and ema_bn_recal > 0 else None)
+    # figures: the trained model for the train figure, the validated one
+    # (the EMA with ema_decay) for the val figure, on val batch 0 fetched
+    # once
+    predict_fn = val_predict_fn = viz_val_batch = None
+    if viz_step:
+        predict_fn = make_predict_step(model, device=dev)
+        val_predict_fn = (make_predict_step(state.ema_model, device=dev)
+                          if ema_decay else predict_fn)
+        viz_val_batch = next(iter(valloader), None)
+    extent = (grid_conf.ybound[0], grid_conf.ybound[1],
+              grid_conf.xbound[0], grid_conf.xbound[1])
 
-    ckpt = CheckpointManager(os.path.join(logdir, "ckpts"))
+    ckpt = CheckpointManager(os.path.join(logdir, "ckpts"),
+                             async_save=async_save)
     # None until a validation: the first one always writes model_best.pt,
     # even at IoU 0 (the JAX trainer starts at 0.0 and writes none then)
     counter, start_epoch, best_val_iou = 0, 0, None
@@ -274,9 +342,9 @@ def train(
               f"(best val IoU so far {best_val_iou})")
     start_counter = counter
 
-    def save(save_fn, *args):
+    def save(save_fn, *args, **kw):
         save_fn(counter, model, state.optimizer, *args,
-                ema_model=state.ema_model)
+                ema_model=state.ema_model, **kw)
 
     preempted = False
 
@@ -292,9 +360,31 @@ def train(
     except ValueError:  # not the main thread (e.g. under a test runner)
         prev_handlers = {}
 
-    logger = MetricLogger(logdir)
+    logger = MetricLogger(logdir, use_wandb=use_wandb, wandb_kwargs={
+        "project": wandb_project, "name": wandb_name, "entity": wandb_entity,
+        "config": {"bsz": bsz, "lr": lr, "grid_conf": grid_conf.to_dict(),
+                   "data_aug_conf": data_aug_conf.to_dict(),
+                   "variant": variant, "compute_dtype": compute_dtype}})
+    watchdog = None
+    if watchdog_secs:
+        watchdog = StallWatchdog(watchdog_secs,
+                                 abort_after=2 * watchdog_secs).start()
+        print(f"Stall watchdog armed after the first step (warn "
+              f"{watchdog_secs}s, abort {2 * watchdog_secs}s)")
+    heartbeat = watchdog.beat if watchdog is not None else None
+    prof = None
+    if profile_dir:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(profile_dir))
+        prof.start()
     print("Starting training...")
     stop = False
+    first_val_done = False  # the watchdog is paused for the first
+                            # validation (one-time set-up, like step 1)
     early_stop_epoch = None
     window_start, window_steps = time.perf_counter(), 0
     try:
@@ -306,12 +396,27 @@ def train(
                 metrics = train_fn(state, batch)
                 counter += 1
                 window_steps += 1
+                micro0 = batch if accum_steps == 1 else tuple(x[0] for x in batch)
                 if recal_window is not None:
-                    recal_window.append(batch[:6] if accum_steps == 1 else
-                                        tuple(x[0] for x in batch[:6]))
+                    recal_window.append(micro0[:6])
+                if watchdog is not None and counter == start_counter + 1:
+                    float(metrics["loss"])  # armed once step 1 is done
+                    watchdog.beat()
+                if debug_stall_at and counter == debug_stall_at \
+                        and resume is None:
+                    # the drill: the watchdog dumps the stacks at N s and
+                    # exits 42 at 2N; --supervise restarts with --resume,
+                    # which skips this
+                    print(f"[debug] injected stall at step {counter}; "
+                          "sleeping until the watchdog ends the process",
+                          flush=True)
+                    while True:
+                        time.sleep(60)
                 if counter % 10 == 0:
                     logger.scalars(counter, **{
                         "train/loss": float(metrics["loss"])})
+                    if watchdog is not None:  # float() synchronised
+                        watchdog.beat()
                 if iou_log_step and counter % iou_log_step == 0:
                     union = float(metrics["union"])
                     iou = float(metrics["intersect"]) / union if union > 0 else 1.0
@@ -328,14 +433,29 @@ def train(
                           f"step_time={step_time:.3f}s")
                     window_start, window_steps = time.perf_counter(), 0
 
+                if viz_step and counter % viz_step == 0:
+                    union = float(metrics["union"])
+                    viz_iou = float(metrics["intersect"]) / union if union > 0 else 1.0
+                    _figure(logger, counter, "train/visualization", micro0,
+                            predict_fn(state, micro0[:6]),
+                            f"Training iter {counter} | IoU {viz_iou:.4f}",
+                            extent)
+                    window_start, window_steps = time.perf_counter(), 0
+
                 if val_step and counter % val_step == 0:
+                    if watchdog is not None and not first_val_done:
+                        watchdog.pause()
                     if ema_decay:
                         if recal_window:
                             recalibrate_bn(state.ema_model, recal_window)
-                        val_info = get_val_info(ema_eval_fn, state, valloader, dev)
-                        raw_info = get_val_info(eval_fn, state, valloader, dev)
+                        val_info = get_val_info(ema_eval_fn, state, valloader,
+                                                dev, heartbeat)
+                        raw_info = get_val_info(eval_fn, state, valloader,
+                                                dev, heartbeat)
                     else:
-                        val_info = get_val_info(eval_fn, state, valloader, dev)
+                        val_info = get_val_info(eval_fn, state, valloader,
+                                                dev, heartbeat)
+                    first_val_done = True
                     val_scalars = {"val/loss": val_info["loss"],
                                    "val/iou": val_info["iou"]}
                     if ema_decay:
@@ -348,17 +468,37 @@ def train(
                           f"iou={val_info['iou']:.4f}"
                           + (f" raw_iou={raw_info['iou']:.4f}" if ema_decay
                              else ""))
+                    if watchdog is not None:
+                        watchdog.beat()
+                    if viz_val_batch is not None:
+                        vb = to_device(viz_val_batch[:7], dev)
+                        _figure(logger, counter, "val/visualization", vb,
+                                val_predict_fn(state, vb[:6]),
+                                f"Validation iter {counter} | "
+                                f"IoU {val_info['iou']:.4f}", extent)
                     if best_val_iou is None or val_info["iou"] > best_val_iou:
                         best_val_iou = val_info["iou"]
+                        if watchdog is not None:
+                            watchdog.pause()  # an abort mid-write would
+                                              # lose the checkpoint
                         save(ckpt.save_best, epoch, best_val_iou)
+                        logger.summary(best_val_iou=best_val_iou)
                         print(f"  new best IoU {best_val_iou:.4f} (saved)")
+                        if watchdog is not None:
+                            watchdog.beat()
                     window_start, window_steps = time.perf_counter(), 0
 
                 if save_step and counter % save_step == 0:
+                    if watchdog is not None:
+                        watchdog.pause()
                     save(ckpt.save, epoch)
+                    if watchdog is not None:
+                        watchdog.beat()
                     window_start, window_steps = time.perf_counter(), 0
                 if preempted:
-                    save(ckpt.save, epoch)
+                    if watchdog is not None:
+                        watchdog.pause()
+                    save(ckpt.save, epoch, wait=True)
                     stop = True
                     break
                 if max_steps is not None and counter >= max_steps:
@@ -368,6 +508,12 @@ def train(
             if stop:
                 break
     finally:
+        # a still-armed watchdog would hard-exit the caller up to 2N
+        # seconds after an escaping exception
+        if watchdog is not None:
+            watchdog.stop()
+        if prof is not None:
+            prof.stop()
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
         logger.close()
@@ -377,6 +523,7 @@ def train(
         # stop records the true epoch, so a resume continues
         save(ckpt.save_final,
              nepochs if early_stop_epoch is None else early_stop_epoch)
+    ckpt.close()
     print(f"Best validation IoU: {best_val_iou}")
     return {"counter": counter, "start_counter": start_counter,
             "best_val_iou": best_val_iou, "state": state}

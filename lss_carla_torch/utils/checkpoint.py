@@ -12,12 +12,21 @@ checkpoint's ``ema_params`` and ``ema_batch_stats``).
 Writes go to a temporary file renamed into place: a file is whole or
 absent. ``load_checkpoint`` resumes from a file or from the newest file of
 a directory.
+
+With ``async_save`` the periodic checkpoints (``save``) are copied to host
+memory on the caller's thread and written to disk by a background thread,
+one at a time; best, final and preemption saves (``save_best``,
+``save_final``, ``save(..., wait=True)``) stay synchronous and durable, as
+in the JAX package's ``utils/checkpoint.py``: each first waits for the
+write in flight. A background write's error is raised by the next save,
+``wait`` or ``close``.
 """
 
 from __future__ import annotations
 
 import os
 import re
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -35,15 +44,29 @@ def _cpu_state(model) -> dict:
     return {k: v.detach().cpu() for k, v in model.state_dict().items()}
 
 
+def _host_copy(obj):
+    """``obj`` with every tensor copied to host memory (nested dicts and
+    lists): a snapshot that later in-place updates cannot reach."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
+
+
 class CheckpointManager:
     """Writes the checkpoint files of one run into ``directory``."""
 
-    def __init__(self, directory):
+    def __init__(self, directory, async_save: bool = False):
         self.directory = Path(directory).resolve()
         self.directory.mkdir(parents=True, exist_ok=True)
+        self._pool = ThreadPoolExecutor(1) if async_save else None
+        self._pending: Optional[Future] = None
 
-    def _write(self, name: str, counter: int, model, optimizer, epoch: int,
-               val_iou: Optional[float] = None, ema_model=None) -> Path:
+    def _blob(self, counter: int, model, optimizer, epoch: int,
+              val_iou: Optional[float] = None, ema_model=None) -> dict:
         blob = {"model_state_dict": _cpu_state(model),
                 "optimizer_state_dict": optimizer.state_dict(),
                 "counter": int(counter), "epoch": int(epoch)}
@@ -51,16 +74,44 @@ class CheckpointManager:
             blob["val_iou"] = float(val_iou)
         if ema_model is not None:
             blob["ema_state_dict"] = _cpu_state(ema_model)
+        return blob
+
+    def _write_blob(self, name: str, blob: dict) -> Path:
         path = self.directory / name
         tmp = path.with_name(f".{name}.{os.getpid()}.tmp")
         torch.save(blob, tmp)
         os.replace(tmp, path)
         return path
 
+    def _write(self, name: str, *args, **kwargs) -> Path:
+        self.wait()
+        return self._write_blob(name, self._blob(*args, **kwargs))
+
+    def wait(self) -> None:
+        """Block until the background write in flight (if any) is on
+        disk; raise its error."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            pending.result()
+
+    def close(self) -> None:
+        self.wait()
+        if self._pool is not None:
+            self._pool.shutdown()
+
     def save(self, counter: int, model, optimizer, epoch: int,
-             ema_model=None) -> Path:
-        return self._write(f"model_{int(counter):06d}.pt", counter, model,
-                           optimizer, epoch, ema_model=ema_model)
+             ema_model=None, wait: bool = False) -> Path:
+        """A periodic (or, with ``wait``, preemption) checkpoint; in the
+        background with ``async_save`` unless ``wait``."""
+        name = f"model_{int(counter):06d}.pt"
+        if self._pool is None or wait:
+            return self._write(name, counter, model, optimizer, epoch,
+                               ema_model=ema_model)
+        self.wait()
+        blob = _host_copy(self._blob(counter, model, optimizer, epoch,
+                                     ema_model=ema_model))
+        self._pending = self._pool.submit(self._write_blob, name, blob)
+        return self.directory / name
 
     def save_best(self, counter: int, model, optimizer, epoch: int,
                   val_iou: float, ema_model=None) -> Path:

@@ -9,8 +9,8 @@ with ``load_state_dict``:
   Conv kernels go (kh, kw, I, O) -> (O, I, kh, kw), depthwise kernels
   (kh, kw, 1, C) -> (C, 1, kh, kw); BN scale/bias/mean/var become
   weight/bias/running_mean/running_var, and ``num_batches_tracked`` is
-  filled with 0. The map takes ``variant`` (the JAX map is hard-wired to
-  B0).
+  filled with 0. The map takes ``variant``, EfficientNet b0-b4 or
+  resnet18/34 (the JAX map is hard-wired to B0).
 * ``jax_ema_to_state_dict(ema_params, ema_batch_stats, variant)``: a JAX
   train state's EMA (``ema_params``, ``ema_batch_stats``) -> an
   ``ema_state_dict`` for the port's checkpoints, through the same map.
@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lss_carla_torch.models.efficientnet import block_plan
+from lss_carla_torch.models.resnet import RESNET_LAYERS
 
 Path = Tuple[str, ...]
 NameMap = Dict[str, Tuple[Path, str]]
@@ -67,6 +68,8 @@ def mbconv_name_map(expand: int, tp: str = "", fp: Path = ()) -> NameMap:
 
 
 def trunk_name_map(variant: str, tp: str = "", fp: Path = ()) -> NameMap:
+    if variant.startswith("resnet"):
+        return resnet_name_map(variant, tp, fp)
     m: NameMap = {}
     _conv(m, f"{tp}_conv_stem", fp + ("conv_stem",))
     _bn(m, f"{tp}_bn0", fp + ("bn_stem",))
@@ -101,6 +104,21 @@ def basicblock_name_map(downsample: bool, tp: str = "", fp: Path = ()) -> NameMa
     if downsample:
         _conv(m, f"{tp}downsample.0", fp + ("downsample_conv",))
         _bn(m, f"{tp}downsample.1", fp + ("downsample_bn",))
+    return m
+
+
+def resnet_name_map(variant: str, tp: str = "", fp: Path = ()) -> NameMap:
+    """``ResNetTrunk`` (torchvision names) <- the JAX trunk's ``conv1``,
+    ``bn1`` and ``layer{s}_{r}`` BasicBlocks; a stage's first block
+    downsamples from layer2 on."""
+    m: NameMap = {}
+    _conv(m, f"{tp}conv1", fp + ("conv1",))
+    _bn(m, f"{tp}bn1", fp + ("bn1",))
+    for stage, reps in enumerate(RESNET_LAYERS[variant], start=1):
+        for r in range(reps):
+            m.update(basicblock_name_map(
+                stage > 1 and r == 0, f"{tp}layer{stage}.{r}.",
+                fp + (f"layer{stage}_{r}",)))
     return m
 
 

@@ -6,6 +6,8 @@ JAX, so it runs where JAX is absent:
     python -m pytest tests/test_torch_cuda.py -m gpu
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -61,12 +63,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         splat_cuda.splat_forward(pts, ids.cpu(), 4)
 
 
-def test_tiny_model_on_card_matches_cpu(cuda, monkeypatch):
+@pytest.mark.parametrize("variant", ["slim", "resnet18"])
+def test_tiny_model_on_card_matches_cpu(cuda, monkeypatch, variant):
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     grid = GridConf(xbound=(-40.0, 40.0, 5.0), ybound=(-40.0, 40.0, 5.0),
                     zbound=(-10.0, 10.0, 20.0), dbound=(4.0, 36.0, 8.0))
     aug = DataAugConf(H=64, W=128, final_dim=(32, 64))
-    model = compile_model(grid, aug, variant="slim", device="cpu").eval()
+    model = compile_model(grid, aug, variant=variant, device="cpu").eval()
     rng = np.random.default_rng(0)
     B, N = 2, 6
     x = torch.from_numpy(rng.normal(size=(B, N, 3, 32, 64)).astype(np.float32))
@@ -87,6 +90,45 @@ def test_tiny_model_on_card_matches_cpu(cuda, monkeypatch):
         got = model.to(cuda)(*(a.to(cuda) for a in args)).cpu()
     assert splat_cuda.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_splat_check_kernel_against_plain_on_card(cuda, monkeypatch):
+    """explore.splat_check on its tiny synthetic config: the kernel side
+    launches the kernel once, the plain side never; logits within 1e-4 of
+    max(1, max |logit|), the depthnet gradient within 1e-3 relative L2, the
+    loss within 1e-5 relative (f32, TF32 off: only the order of the
+    splat's sums differs)."""
+    from lss_carla_torch import explore
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    before = splat_cuda.launches
+    res = explore.splat_check(bsz=2, variant="slim", device="cuda")
+    assert splat_cuda.launches == before + 1
+    a, b = res["kernel"], res["plain"]
+    scale = max(1.0, float(b["logits"].abs().max()))
+    assert float((a["logits"] - b["logits"]).abs().max()) <= 1e-4 * scale
+    assert float((a["grad"] - b["grad"]).norm()) <= 1e-3 * float(b["grad"].norm())
+    assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"])
+
+
+def test_watchdog_fires_while_the_card_stalls(cuda):
+    """A step's device work that never ends (a ~3 s device spin here) holds
+    the host in synchronize without beats: the watchdog warns and aborts
+    with 42 from its own thread."""
+    from lss_carla_torch.training.watchdog import StallWatchdog
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(int(1e8))
+    torch.cuda.synchronize()
+    cycles_per_s = 1e8 / (time.perf_counter() - t0)
+    msgs, codes = [], []
+    wd = StallWatchdog(0.5, abort_after=1.0, abort_fn=codes.append,
+                       warn_fn=msgs.append).start()
+    wd.beat()
+    torch.cuda._sleep(int(3.0 * cycles_per_s))
+    torch.cuda.synchronize()
+    wd.stop()
+    assert codes == [42]
+    assert any("no step progress" in m for m in msgs)
 
 
 # (N, C, H, W) per (k, s): odd and even sizes, so the asymmetric SAME

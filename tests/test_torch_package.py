@@ -43,7 +43,10 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.training.bn_recal", "lss_carla_torch.training.state",
             "lss_carla_torch.training.step", "lss_carla_torch.data.simbev",
             "lss_carla_torch.data.loader", "lss_carla_torch.utils.checkpoint",
-            "lss_carla_torch.train"} <= set(modules)
+            "lss_carla_torch.train", "lss_carla_torch.models.resnet",
+            "lss_carla_torch.explore", "lss_carla_torch.tools",
+            "lss_carla_torch.training.watchdog", "lss_carla_torch.utils.supervise",
+            "lss_carla_torch.utils.viz"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -102,6 +105,32 @@ def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             build(model)
         assert callable(build(model, device="cpu"))
+
+
+def test_explore_tools_and_resnet_raise_without_gpu(no_gpu, tmp_path):
+    """The explore tools, the tools.py splat and a ResNet model default to
+    cuda and raise with no GPU before reading any data; a ResNet model
+    builds on the CPU when asked."""
+    from lss_carla_torch import explore, tools
+    nowhere = str(tmp_path / "nowhere")
+    for call in (lambda: explore.eval_model_iou(nowhere, nowhere),
+                 lambda: explore.model_preds(nowhere),
+                 lambda: explore.viz_model_preds(nowhere),
+                 lambda: explore.splat_check(),
+                 lambda: explore.frustum_points(nowhere),
+                 lambda: explore.lidar_check(nowhere),
+                 lambda: explore.main(["splat_check"])):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            call()
+    grid, aug = tiny_confs()
+    for variant in ("resnet18", "resnet34"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            compile_model(grid, aug, variant=variant)
+    model = compile_model(grid, aug, variant="resnet18", device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    feats = torch.ones(4, 2)
+    assert tools.cumsum_trick(feats, torch.tensor([0, 1, 1, 9]), 3).tolist() == \
+        [[1.0, 1.0], [2.0, 2.0], [0.0, 0.0]]
 
 
 def test_artifact_signature_round_trip(tmp_path):

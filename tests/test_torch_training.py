@@ -307,10 +307,26 @@ def test_train_checkpoints_and_resume(fixture_root, tmp_path, fused_dw,
 
 
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
+    from lss_carla_torch.training.loop import UNPORTED
+    assert set(UNPORTED) == {"pretrained_trunk", "n_devices", "multihost",
+                             "cam_devices", "grid_devices", "dataset",
+                             "nuscenes_version"}
     with pytest.raises(NotImplementedError, match="A5, --pretrained_trunk"):
         train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
+    # with a ResNet trunk the JAX trainer's own check comes first
+    with pytest.raises(ValueError, match="no import source exists for the resnet"):
+        train(fixture_root, **dict(TINY, variant="resnet18"),
+              pretrained_trunk="auto", logdir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="A9, parallel modes"):
         train(fixture_root, **TINY, n_devices=8, logdir=str(tmp_path))
+    for key, value in (("multihost", True), ("cam_devices", 2),
+                       ("grid_devices", 2)):
+        with pytest.raises(NotImplementedError, match="A9, parallel modes"):
+            train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
+    for key, value in (("dataset", "nuscenes"),
+                       ("nuscenes_version", "v1.0-trainval")):
+        with pytest.raises(NotImplementedError, match="A7, the nuScenes loader"):
+            train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
     with pytest.raises(TypeError, match="unexpected"):
         train(fixture_root, **TINY, no_such_flag=1, logdir=str(tmp_path))
     # 6 train batches an epoch: a stack of 7 never fills
@@ -321,3 +337,6 @@ def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
     from lss_carla_torch.train import main
     with pytest.raises(SystemExit):
         main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto"])
+    with pytest.raises(ValueError, match="resnet"):
+        main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto",
+              "--variant", "resnet34"])

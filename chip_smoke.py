@@ -103,7 +103,21 @@ exits non-zero without the final result line:
     --supervise 1 --watchdog_secs 5 --debug_stall_at 3 --save_step 2
     --max_steps 6``: the first child stalls at step 3, dumps its stacks
     and exits 42 about 10 s later; the second resumes from step 2 and
-    ends at 6; the supervisor returns 0.
+    ends at 6; the supervisor returns 0;
+17. int8 serving (``ops/quant.py``): which shapes ``torch._int_mm`` takes
+    on the card; the B0 model's int8 convs (their number equal to the
+    gate's count from the block plan); a bsz-8 uint8 artifact exported
+    with ``quantize`` served over HTTP against the live int8 model, with
+    the splat kernel's launches; every int8 conv's int32 accumulator on
+    the card equal to the CPU's bit for bit; card int8 against CPU int8 at
+    bsz 1 over six seeds, B0 and B4 at 400 x 400 (whose SE convs take the
+    padded rows); int8 against float on the card within JAX's bounds on
+    the B0 model at its BN init (as JAX's test), with the randomised and
+    phase 8's trained B0 as readings; B0 ms per sample at bsz 8 in f32,
+    bf16 and int8, and the stretch B4 at bsz 4 in bf16 and int8, in turns;
+18. ``python -m lss_carla_torch.bench --mode all --iters 5 --warmup 2`` as
+    a child process: its lines relayed, three metrics under bench.py's
+    names with finite positive values, the f32 step at bsz 8.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -139,7 +153,7 @@ from lss_carla_torch.data.fixtures import generate_fixture
 from lss_carla_torch.data.loader import compile_data
 from lss_carla_torch.models.efficientnet import MBConvBlock, block_plan
 from lss_carla_torch.models.lss import compile_model
-from lss_carla_torch.ops import mbconv_cuda, splat_cuda
+from lss_carla_torch.ops import mbconv_cuda, quant, splat_cuda
 from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
                                         same_pad)
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
@@ -150,6 +164,7 @@ from lss_carla_torch.training import loop
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.training.state import create_train_state
 from lss_carla_torch.training.step import make_train_step
+from lss_carla_torch.utils.backend import card_line
 from lss_carla_torch.utils.convert import reference_state_dict
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
@@ -168,13 +183,6 @@ CPU_TOL = 1e-3             # x max(1, max |logit|), absolute
 def reset_launches() -> None:
     splat_cuda.reset_launches()
     mbconv_cuda.reset_launches()
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1711,6 +1719,258 @@ def phase_supervise(tmp, seed):
           flush=True)
 
 
+# --- phase 17: int8 serving ---------------------------------------------
+
+INT8_SEEDS = range(6)
+# card int8 against CPU int8 at bsz 1 (f32, TF32 off), x max(1, max |logit|):
+# a float difference upstream (a few ulps: conv algorithms, the splat's
+# atomic order) moves an activation across a rounding edge and flips one
+# quantum, and the flips compound over the int8 convs until the two sides
+# differ about as much as int8 and float do. Twice the largest of these
+# six seeds' readings (PERF.md, the int8 findings: B0 0.15932, B4
+# 0.16429). Each conv's int32 accumulator is held exactly
+# (int8_accumulators_exact)
+INT8_CPU_TOL = {"b0": 0.32, "b4": 0.33}
+# JAX's own int8-against-float bounds (tests/test_quant.py:82-105), held
+# where JAX holds them: B0 at the tests' tiny config, BN at its init
+JAX_INT8_REL, JAX_INT8_AGREE = 0.1, 0.97
+TINY_GRID = GridConf(xbound=(-40.0, 40.0, 5.0), ybound=(-40.0, 40.0, 5.0),
+                     dbound=(4.0, 36.0, 8.0))
+TINY_AUG = DataAugConf(H=64, W=128, final_dim=(32, 64))
+
+
+def b0_int8_gate_count(min_channels: int = 64) -> int:
+    """The convs of the B0 LSS model that the gate (groups 1, dilation 1,
+    min(cin, cout) >= min_channels) quantizes, counted from the block plan
+    and the encoders' widths, not from the model."""
+    convs = []
+    for b in block_plan("b0"):
+        mid, se = b["cin"] * b["expand"], max(1, int(b["cin"] * 0.25))
+        if b["expand"] != 1:
+            convs.append((b["cin"], mid))
+        convs += [(mid, se), (se, mid), (mid, b["cout"])]  # SE; project
+    convs += [(320 + 112, 512), (512, 512), (512, 41 + 64)]  # up1; depthnet
+    convs += [(64, 64)] + [(64, 64)] * 4  # BEV conv1, layer1
+    for cin, cout in ((64, 128), (128, 256)):  # layer2, layer3
+        convs += [(cin, cout), (cout, cout), (cin, cout), (cout, cout),
+                  (cout, cout)]  # conv1, conv2, downsample, block 2
+    convs += [(64 + 256, 256), (256, 256), (256, 128), (128, 1)]  # up1; up2
+    return sum(min(c) >= min_channels for c in convs)
+
+
+def turns_ms(fns: dict, iters: int = 10) -> dict:
+    """Device ms per call of each of ``fns``, timed in turns (A B C C B
+    A): {name: [first, second]}."""
+    names = list(fns)
+    out = {k: [] for k in names}
+    for order in (names, names[::-1]):
+        for k in order:
+            with torch.inference_mode():
+                out[k].append(cuda_ms(fns[k], iters=iters))
+    return out
+
+
+def int8_accumulators_exact(qmodel, args) -> int:
+    """Every int8 conv of ``qmodel`` (on the card) on the input it sees in
+    a forward of ``args``: the int32 accumulators of the card (cuBLASLt
+    ``_int_mm``) equal the CPU's bit for bit. Returns the convs checked."""
+    seen = []
+
+    def hook(mod, inp, out):
+        seen.append((mod, inp[0].detach()))
+
+    hooks = [m.register_forward_hook(hook) for m in qmodel.modules()
+             if isinstance(m, quant.Int8Conv2d)]
+    try:
+        with torch.inference_mode():
+            qmodel(*[torch.as_tensor(a).cuda() for a in args])
+    finally:
+        for h in hooks:
+            h.remove()
+    for mod, x in seen:
+        x_i8, _ = quant.quantize_activation(x)
+        acc = quant.conv_int8_acc(x_i8, mod.w_rows, mod.out_channels,
+                                  mod.kernel_size, mod.stride, mod.padding)
+        want = quant.conv_int8_acc(x_i8.cpu(), mod.w_rows.cpu(),
+                                   mod.out_channels, mod.kernel_size,
+                                   mod.stride, mod.padding)
+        assert torch.equal(acc.cpu(), want), f"int32 accumulator differs: {mod}"
+    return len(seen)
+
+
+def int_mm_limits() -> str:
+    """Which (M, K, N) shapes ``torch._int_mm`` takes on this card (a
+    reading; ``quant.mm_shape`` pads to M > 16 and K, N multiples of 8)."""
+    notes = []
+    for M, K, N in ((16, 64, 64), (17, 64, 64), (32, 60, 64), (32, 64, 105),
+                    (17, 8, 8)):
+        a = torch.ones(M, K, dtype=torch.int8, device="cuda")
+        b = torch.ones(N, K, dtype=torch.int8, device="cuda")
+        try:
+            ok = int(torch._int_mm(a, b.t())[0, 0]) == K
+            notes.append(f"({M}, {K}, {N}) {'ok' if ok else 'WRONG'}")
+        except RuntimeError as e:
+            notes.append(f"({M}, {K}, {N}) refused: {str(e).splitlines()[0]}")
+    return "; ".join(notes)
+
+
+def b0_model(seed: int, randomized: bool = True, compute_dtype="float32",
+             grid_conf=None, aug_conf=None):
+    """The B0 LSS (the flagship config unless told otherwise) on the CPU,
+    eval mode: seeded weights and, with ``randomized``, seeded BN
+    statistics (else BN at its init, as JAX's int8 test has it)."""
+    gen = torch.Generator().manual_seed(seed)
+    model = compile_model(grid_conf or GridConf(), aug_conf or DataAugConf(),
+                          outC=1, variant="b0", compute_dtype=compute_dtype,
+                          device="cpu", generator=gen)
+    if randomized:
+        randomize_bn(model, gen)
+    return model.eval()
+
+
+def _logits(model, args):
+    dev = next(model.buffers()).device
+    with torch.inference_mode():
+        return model(*[torch.as_tensor(a).to(dev) for a in args]).float().cpu()
+
+
+def int8_vs_float(name, model, args, check: bool) -> str:
+    """int8 against float on the card; with ``check`` held to JAX's bounds."""
+    qmodel, _ = quant.quantize_model(model)
+    ref, got = _logits(model, args), _logits(qmodel, args)
+    assert torch.isfinite(got).all(), f"{name}: non-finite int8 logits"
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    agree = float(((got > 0) == (ref > 0)).float().mean())
+    if check:
+        assert rel < JAX_INT8_REL and agree > JAX_INT8_AGREE, (name, rel, agree)
+    return f"{name} max|Δ| {rel:.4f} of max|logit|, signs agree {agree:.5f}"
+
+
+def phase_int8(tmp, rng, seed, b0_run):
+    """Phase 17. Returns the splat kernel's launches while serving int8."""
+    print(f"_int_mm on this card: {int_mm_limits()}", flush=True)
+    # (a) the gate on B0, and the int8 artifact served over HTTP
+    model = b0_model(seed)
+    qmodel, swapped = quant.quantize_model(model)
+    want_n = b0_int8_gate_count()
+    assert len(swapped) == want_n, (len(swapped), want_n)
+    print(f"int8 convs of B0 ({len(swapped)}, the gate's count from the "
+          f"block plan {want_n}): {', '.join(swapped)}", flush=True)
+    path8 = f"{tmp}/lss_bsz8_u8_int8.pt"
+    export_predict(model, path8, bsz=8, uint8_images=True, quantize=True)
+    many = inputs(rng, 8, True)
+    splat_cuda.reset_launches()  # the main path starts here
+    with Running(serve(path8, port=0, warmup_args=many, device="cuda")) as base:
+        assert get(base, "/healthz")[0] == 200
+        served = post(base, many)
+    launches = splat_cuda.launches  # the main path ends here
+    assert launches > 0, "int8 serving never launched the splat kernel"
+    qcard = copy.deepcopy(qmodel).cuda()
+    err, scale = assert_close("int8 served", served, _logits(qcard, many).numpy(),
+                              SERVE_TOL)
+    n_exact = int8_accumulators_exact(qcard, many)
+    print(f"int8 artifact (bsz 8, uint8, float weights in the file) served "
+          f"over HTTP: max |served - live int8| {err:.3e} (tolerance "
+          f"{SERVE_TOL} x {scale:.3f}); splat kernel launches {launches}; "
+          f"int32 accumulators of all {n_exact} int8 convs, card = CPU bit "
+          f"for bit on the served batch", flush=True)
+    # (b) card int8 against CPU int8 at bsz 1, B0 and B4 at 400 x 400
+    for name in ("b0", "b4"):
+        readings = []
+        for s in INT8_SEEDS:
+            one = inputs(np.random.default_rng(1000 + s), 1, uint8=True)
+            x = (one[0].astype(np.float32),) + one[1:]
+            cpu = (b0_model(seed + s) if name == "b0" else stretch_model(
+                seed + s, "float32", fused_dw=False).cpu().eval())
+            qcpu, _ = quant.quantize_model(cpu)
+            want = _logits(qcpu, x).numpy()
+            got = _logits(copy.deepcopy(qcpu).cuda(), x).numpy()
+            readings.append(assert_close(f"{name} int8 card vs CPU", got, want,
+                                         INT8_CPU_TOL[name]))
+        worst = max(e / sc for e, sc in readings)
+        print(f"int8 card vs CPU, {name} bsz 1 f32 TF32 off, seeds "
+              f"{seed}-{seed + len(readings) - 1}: max |diff| / max(1, "
+              f"max|logit|) {[round(e / sc, 5) for e, sc in readings]} "
+              f"(limit {INT8_CPU_TOL[name]}; largest {worst:.5f})", flush=True)
+    # (c) int8 against float on the card: JAX's bounds at JAX's test's
+    # size (tests/test_quant.py: the tests' tiny config, BN at init, bsz
+    # 2, random images, focal length 60; here on this script's rig), then
+    # full width as readings
+    trng = np.random.default_rng(seed)
+    tiny = (trng.normal(size=(2, 6, 3, 32, 64)).astype(np.float32),
+            *inputs(trng, 2, False, (32, 64))[1:])
+    tiny[3][..., 0, 0] = tiny[3][..., 1, 1] = 60.0
+    notes = [int8_vs_float("tiny B0 at BN init, bsz 2 (JAX's test)", b0_model(
+        seed, False, grid_conf=TINY_GRID, aug_conf=TINY_AUG).cuda(), tiny,
+        check=True)]
+    notes.append(int8_vs_float("full width, bsz 8: B0 at BN init", b0_model(
+        seed, randomized=False).cuda(), many, False))
+    notes.append(int8_vs_float("B0 randomised BN", model.cuda(), many, False))
+    trained = b0_model(seed, randomized=False)
+    trained.load_state_dict(reference_state_dict(torch.load(
+        f"{b0_run}/ckpts/model_best.pt", map_location="cpu",
+        weights_only=True)["model_state_dict"]))
+    notes.append(int8_vs_float("phase 8's trained B0", trained.cuda(), many,
+                               False))
+    print("int8 vs float on the card (limits: JAX's test only): "
+          + "; ".join(notes), flush=True)
+    # (d) times: B0 bsz 8 (f32, bf16, int8 of the bf16 model, as the
+    # bench's --quantize), the stretch B4 bsz 4 (bf16, int8), cuDNN TF32 on
+    torch.backends.cudnn.allow_tf32 = True
+    dev8 = [torch.as_tensor(a).cuda() for a in many]
+    bf16 = b0_model(seed, compute_dtype="bfloat16").cuda()
+    models = {"f32": model, "bf16": bf16, "int8": quant.quantize_model(bf16)[0]}
+    t8 = turns_ms({k: (lambda m=m: m(*dev8)) for k, m in models.items()})
+    del models, bf16
+    sb = stretch_model(seed, "bfloat16", fused_dw=False).eval()
+    dev4 = [torch.as_tensor(a).cuda() for a in inputs(rng, 4, True)]
+    s4 = {"bf16": sb, "int8": quant.quantize_model(sb)[0]}
+    t4 = turns_ms({k: (lambda m=m: m(*dev4)) for k, m in s4.items()})
+    torch.backends.cudnn.allow_tf32 = False
+    del s4, sb
+    fmt = lambda t, b: ", ".join(f"{k} {v[0] / b:.4f} / {v[1] / b:.4f}"
+                                 for k, v in t.items())
+    print(f"int8 times (ms per sample, CUDA events, two turns, cuDNN TF32 on, "
+          f"uint8 inputs on the card): B0 inference_ms_per_sample_bsz8 "
+          f"{fmt(t8, 8)}; stretch B4 400 x 400 bf16 bsz 4 {fmt(t4, 4)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --- phase 18: the bench ------------------------------------------------
+
+BENCH_METRICS = ("train_step_ms_bsz8", "inference_ms_per_sample_bsz8",
+                 "train_step_ms_bsz8_bfloat16")
+
+
+def phase_bench():
+    """Phase 18: ``python -m lss_carla_torch.bench --mode all`` as a child
+    process; its lines relayed and checked."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "lss_carla_torch.bench", "--mode", "all",
+         "--iters", "5", "--warmup", "2"], cwd=os.path.dirname(
+            os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    for line in out.stdout.splitlines():
+        print(f"  | {line}", flush=True)
+    assert out.returncode == 0, out.stderr[-4000:]
+    metrics = [json.loads(ln) for ln in out.stdout.splitlines()
+               if ln.startswith("{")]
+    assert [m["metric"] for m in metrics] == list(BENCH_METRICS), metrics
+    for m in metrics:
+        assert set(m) == {"metric", "value", "unit", "vs_baseline"}, m
+        assert m["unit"] == "ms" and math.isfinite(m["value"]) and m["value"] > 0, m
+    steps = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("bench: train step")]
+    assert "imgs (8, 6, 3, 128, 352) float32" in steps[0] and \
+        "binimgs (8, 1, 200, 200), float32," in steps[0], steps
+    print(f"bench: three lines under bench.py's names, the f32 step at bsz 8, "
+          f"in {time.perf_counter() - t0:.1f} s (a child process)", flush=True)
+    return {m["metric"]: m["value"] for m in metrics}
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
@@ -1857,14 +2117,21 @@ def main(argv=None) -> int:
                                          stretch_run)
         at(16)
         phase_supervise(tmp, args.seed)
-        at(17)  # the end
+
+        # 17. int8 serving; 18. the bench as a child process
+        at(17)
+        int8_launches = phase_int8(tmp, rng, args.seed, b0_run)
+        at(18)
+        phase_bench()
+        at(19)  # the end
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training + {stretch_launches['splat']} stretch (bf16) + "
           f"{resnet_launches} ResNet-18 serving and training + "
-          f"{explore_launches} explore tools; dw_conv_stats {dw_launches} "
+          f"{explore_launches} explore tools + {int8_launches} int8 serving; "
+          f"dw_conv_stats {dw_launches} "
           f"training + {stretch_launches['dw_conv_stats']} stretch (bf16) + 0 "
-          f"ResNet + 0 explore (eval mode)", flush=True)
+          f"ResNet + 0 explore + 0 int8 (eval mode)", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def stretch_row(name):
@@ -1877,7 +2144,8 @@ def main(argv=None) -> int:
                 "source": "lss_carla_torch/csrc/splat.cu",
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
                 "launches": (launches + splat_train + stretch_launches["splat"]
-                             + resnet_launches + explore_launches),
+                             + resnet_launches + explore_launches
+                             + int8_launches),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat")},
                {"name": "dw_conv_stats", "route": "cuda",

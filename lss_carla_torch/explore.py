@@ -21,12 +21,13 @@ Checkpoints are the port's files (``utils/checkpoint.py``): a file, or a
 run's ``ckpts`` directory (its newest checkpoint, or ``model_best.pt`` with
 ``best``); ``use_ema`` evaluates a checkpoint's ``ema_state_dict``. Every
 tool takes ``device``: "cuda" unless the caller asks for the CPU; no GPU
-raises. The nuScenes modes (``dataset="nuscenes"``, ``map_folder``) and
-``quantize`` raise ``NotImplementedError`` naming their ``ROADMAP.md``
+raises. ``eval_model_iou(quantize=True)`` runs the eligible convs in int8
+(``ops/quant.py``). The nuScenes modes (``dataset="nuscenes"``,
+``map_folder``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
 item.
 
     python -m lss_carla_torch.explore eval_model_iou --dataroot DIR \\
-        --checkpoint RUN/ckpts --best [--ema] [--variant resnet18]
+        --checkpoint RUN/ckpts --best [--ema] [--quantize] [--variant resnet18]
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.data.loader import compile_data
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.ops.geometry import create_frustum, get_geometry
+from lss_carla_torch.ops.quant import quantize_model
 from lss_carla_torch.ops.splat import (_gather_cotangent, splat,
                                        splat_reference, voxel_indices)
 from lss_carla_torch.training.loop import get_val_info
@@ -52,8 +54,7 @@ from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.checkpoint import BEST, load_checkpoint
 from lss_carla_torch.utils.convert import reference_state_dict
 
-NUSCENES = "ROADMAP.md A7, the nuScenes loader"
-INT8 = "ROADMAP.md A8, int8"
+NUSCENES = "ROADMAP.md §A, nuScenes"
 
 
 def _simbev_only(dataset: str, map_folder=None) -> None:
@@ -120,13 +121,15 @@ def _build(dataroot, bsz=4, nworkers=4, H=None, W=None,
 def eval_model_iou(dataroot, checkpoint: str, bsz=4, nworkers=4,
                    quantize: bool = False, device="cuda", **kw) -> dict:
     """Mean val loss (BCE, pos_weight 2.13), dataset IoU and, for outC > 1,
-    ``iou_per_class`` of a checkpoint over the whole val set."""
-    if quantize:
-        raise NotImplementedError(f"quantize: int8 inference is not ported "
-                                  f"to lss_carla_torch yet ({INT8})")
+    ``iou_per_class`` of a checkpoint over the whole val set. ``quantize``:
+    the eligible convs in int8 (``quantize_model``, min_channels 64), so
+    the IoU against the float eval is the quantisation's cost."""
     model, _, valloader, *_ = _build(dataroot, bsz=bsz, nworkers=nworkers,
                                      checkpoint=checkpoint, device=device,
                                      **kw)
+    if quantize:
+        model, swapped = quantize_model(model)
+        print(f"int8: {len(swapped)} convs")
     dev = next(model.parameters()).device
     info = get_val_info(make_eval_step(model, pos_weight=2.13, device=dev),
                         None, valloader, dev)
@@ -367,7 +370,8 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--version", default="v1.0-mini")
         if name == "eval_model_iou":
             sp.add_argument("--quantize", action="store_true",
-                            help="int8 convs (not ported yet: ROADMAP A8)")
+                            help="int8 convs where min(cin, cout) >= 64 "
+                                 "(ops/quant.py)")
         if name in ("eval_model_iou", "viz_model_preds"):
             sp.add_argument("--xbound", type=float, nargs=3, default=None,
                             help="BEV grid x bounds/step the checkpoint "
@@ -380,7 +384,7 @@ def build_parser() -> argparse.ArgumentParser:
         if name == "viz_model_preds":
             sp.add_argument("--map_folder", default=None,
                             help="nuScenes map-expansion folder (not ported "
-                                 "yet: ROADMAP A7)")
+                                 "yet: ROADMAP §A, nuScenes)")
     return p
 
 

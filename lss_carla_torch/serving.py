@@ -1,10 +1,13 @@
 """Serving: export a model to one artifact file and load it back as a callable.
 
 Counterpart of ``lss_carla_tpu/serving.py``. The artifact is a single
-``torch.save`` file holding the model config, its state dict and the input
-signature (bsz, ncams, image dtype). ``load_predict`` rebuilds the model in
-eval mode on ``device`` and returns ``callable(*6 inputs) -> logits``.
-Loading still needs this package's model code (unlike ``jax.export``).
+``torch.save`` file holding the model config, its state dict, the input
+signature (bsz, ncams, image dtype) and the int8 settings. ``load_predict``
+rebuilds the model in eval mode on ``device`` and returns ``callable(*6
+inputs) -> logits``. Loading still needs this package's model code (unlike
+``jax.export``). An artifact exported with ``quantize=True`` keeps the
+float weights; ``load_predict`` swaps its eligible convs for int8 ones
+(``ops/quant.py::quantize_model``) after loading them.
 
     from lss_carla_torch.serving import export_predict, load_predict
     export_predict(model, "/models/lss.pt", bsz=1)
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from lss_carla_torch.models.lss import compile_model
+from lss_carla_torch.ops.quant import quantize_model
 from lss_carla_torch.utils.backend import resolve_device
 
 FORMAT = "lss_carla_torch.predict/1"
@@ -51,12 +55,15 @@ def example_args(signature: dict):
 
 
 def export_predict(model, path: str, bsz: int = 1, uint8_images: bool = False,
-                   ncams: Optional[int] = None) -> None:
+                   ncams: Optional[int] = None, quantize: bool = False,
+                   quant_min_channels: int = 64) -> None:
     """Write ``model`` (config + weights) and its input signature to ``path``.
 
     uint8_images: a uint8 image signature, normalised on the device.
     ncams: serving camera count; by default the full rig, max(Ncams, 6)
-    (Ncams is the train-time camera-dropout count)."""
+    (Ncams is the train-time camera-dropout count). quantize: serve the
+    convs that ``quantize_model(min_channels=quant_min_channels)`` swaps in
+    int8 (``ops/quant.py``)."""
     if ncams is None:
         ncams = max(model.data_aug_conf.Ncams, 6)
     signature = {"bsz": int(bsz), "ncams": int(ncams),
@@ -64,7 +71,9 @@ def export_predict(model, path: str, bsz: int = 1, uint8_images: bool = False,
                  "img_dtype": "uint8" if uint8_images else "float32"}
     state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     torch.save({"format": FORMAT, "config": model.config(),
-                "state_dict": state, "signature": signature}, path)
+                "state_dict": state, "signature": signature,
+                "quantize": bool(quantize),
+                "quant_min_channels": int(quant_min_channels)}, path)
 
 
 class Predictor:
@@ -104,12 +113,16 @@ def read_signature(path: str) -> dict:
 
 
 def load_predict(path: str, device="cuda") -> Predictor:
-    """Load an artifact onto ``device`` (cuda unless "cpu" is asked for)."""
+    """Load an artifact onto ``device`` (cuda unless "cpu" is asked for),
+    its eligible convs in int8 if it was exported with ``quantize``."""
     dev = resolve_device(device)
     blob = _read(path)
     model = compile_model(device="cpu", **blob["config"])
     model.load_state_dict(blob["state_dict"])
-    return Predictor(model.eval().to(dev), blob["signature"], dev)
+    model.eval()
+    if blob.get("quantize", False):
+        model, _ = quantize_model(model, blob["quant_min_channels"])
+    return Predictor(model.to(dev), blob["signature"], dev)
 
 
 def _main(argv=None):
@@ -118,12 +131,13 @@ def _main(argv=None):
 
         python -m lss_carla_torch.serving --checkpoint runs/x/ckpts --best \\
             --out /models/lss.pt [--ema] [--compute_dtype bfloat16] \\
-            [--uint8] [--bsz 8] [--variant b4|resnet18]
+            [--quantize] [--uint8] [--bsz 8] [--variant b4|resnet18]
 
     ``--checkpoint`` is a ``.pt`` file or a run's checkpoint directory (its
     newest checkpoint, or ``model_best.pt`` with ``--best``). ``--ema``
     exports the checkpoint's ``ema_state_dict`` where it has one, else the
-    raw weights. ``--compute_dtype bfloat16`` serves in bf16.
+    raw weights. ``--compute_dtype bfloat16`` serves in bf16. ``--quantize``
+    serves the eligible convs in int8 (``ops/quant.py``).
     """
     import argparse
     import os
@@ -142,6 +156,9 @@ def _main(argv=None):
                         "without them")
     p.add_argument("--compute_dtype", default="float32",
                    choices=("float32", "bfloat16"))
+    p.add_argument("--quantize", action="store_true",
+                   help="int8 convs where min(cin, cout) >= 64 "
+                        "(ops/quant.py); the artifact keeps float weights")
     p.add_argument("--uint8", action="store_true",
                    help="uint8 image inputs (normalised on the device)")
     p.add_argument("--bsz", type=int, default=1)
@@ -189,9 +206,10 @@ def _main(argv=None):
             ckpt = ckpt["model_state_dict"]
     model.load_state_dict(reference_state_dict(ckpt))
     export_predict(model, args.out, bsz=args.bsz, uint8_images=args.uint8,
-                   ncams=args.ncams)
+                   ncams=args.ncams, quantize=args.quantize)
     print(f"exported {args.out} ({os.path.getsize(args.out) / 1e6:.1f} MB, "
           f"bsz {args.bsz}, {args.compute_dtype}, {weights} weights"
+          f"{', int8' if args.quantize else ''}"
           f"{', uint8-in' if args.uint8 else ''})")
 
 

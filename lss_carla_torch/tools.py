@@ -13,7 +13,8 @@ point features per voxel with a gather backward; here both names are
 ``splat_scatter_add``, the JAX package's signature on the port's splat
 (the CUDA kernel on a CUDA tensor). The nuScenes symbols
 (``get_nusc_maps``, ``get_local_map``, ``plot_nusc_map``,
-``get_lidar_data``) wait for the nuScenes slice (``ROADMAP.md`` A7).
+``get_lidar_data``) wait for the nuScenes slice (``ROADMAP.md`` §A,
+nuScenes).
 """
 
 from __future__ import annotations

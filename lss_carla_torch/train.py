@@ -135,22 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None):
-    """Parse the flags and train; with ``--supervise R``, supervise a child
-    trainer instead and return its exit code."""
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    check_pretrained_trunk(args.pretrained_trunk, args.variant)
-    given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
-    if given:
-        parser.error("not ported to lss_carla_torch yet: " + "; ".join(
-            f"--{k} (ROADMAP.md {_UNPORTED_FLAGS[k]})" for k in given))
-    if args.supervise > 0:
-        from lss_carla_torch.utils.supervise import run_supervised
-        return run_supervised(args.supervise, args.logdir,
-                              argv=sys.argv[1:] if argv is None else argv)
+def train_kwargs(args) -> dict:
+    """``train()``'s keywords from the parsed flags."""
     device = f"cuda:{args.gpuid}" if args.device == "cuda" else "cpu"
-    train(
+    return dict(
         dataroot=args.dataroot, nepochs=args.nepochs, H=args.H, W=args.W,
         final_dim=(args.final_h, args.final_w), ncams=args.ncams,
         bsz=args.bsz, nworkers=args.nworkers, lr=args.lr,
@@ -176,6 +164,23 @@ def main(argv=None):
         profile_dir=args.profile_dir, watchdog_secs=args.watchdog_secs,
         debug_stall_at=args.debug_stall_at, async_save=args.async_save,
         device=device)
+
+
+def main(argv=None):
+    """Parse the flags and train; with ``--supervise R``, supervise a child
+    trainer instead and return its exit code."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_pretrained_trunk(args.pretrained_trunk, args.variant)
+    given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
+    if given:
+        parser.error("not ported to lss_carla_torch yet: " + "; ".join(
+            f"--{k} (ROADMAP.md {_UNPORTED_FLAGS[k]})" for k in given))
+    if args.supervise > 0:
+        from lss_carla_torch.utils.supervise import run_supervised
+        return run_supervised(args.supervise, args.logdir,
+                              argv=sys.argv[1:] if argv is None else argv)
+    train(**train_kwargs(args))
     return 0
 
 

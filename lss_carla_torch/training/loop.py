@@ -55,15 +55,16 @@ from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.checkpoint import CheckpointManager, load_checkpoint
 from lss_carla_torch.utils.logging import MetricLogger
 
-# keyword of the JAX trainer -> (its values that mean "off", ROADMAP.md item)
+# keyword of the JAX trainer -> (its values that mean "off", the ROADMAP.md
+# item by its title: the items' numbers change as the queue moves)
 UNPORTED = {
-    "pretrained_trunk": ((None,), "A5, --pretrained_trunk"),
-    "n_devices": ((None, 1), "A9, parallel modes"),
-    "multihost": ((False,), "A9, parallel modes"),
-    "cam_devices": ((1,), "A9, parallel modes"),
-    "grid_devices": ((1,), "A9, parallel modes"),
-    "dataset": (("simbev",), "A7, the nuScenes loader"),
-    "nuscenes_version": (("v1.0-mini",), "A7, the nuScenes loader"),
+    "pretrained_trunk": ((None,), "§A, --pretrained_trunk"),
+    "n_devices": ((None, 1), "§A, parallel modes"),
+    "multihost": ((False,), "§A, parallel modes"),
+    "cam_devices": ((1,), "§A, parallel modes"),
+    "grid_devices": ((1,), "§A, parallel modes"),
+    "dataset": (("simbev",), "§A, nuScenes"),
+    "nuscenes_version": (("v1.0-mini",), "§A, nuScenes"),
 }
 
 
@@ -95,7 +96,9 @@ def get_val_info(eval_step, state, valloader, device=None,
     ``src/tools.py:243-270``), plus ``iou_per_class`` for outC > 1. Sums
     stay on the device until the end; with ``heartbeat`` (the stall
     watchdog's feed) each batch is synchronised and ``heartbeat()`` called
-    after it."""
+    after it. A loader that yields no batch gives loss 0.0 and IoU 1.0,
+    as the JAX package's does (and ``train()`` then treats that as any
+    validation)."""
     total = None
     it = iter(valloader)
     if device is not None:
@@ -107,7 +110,7 @@ def get_val_info(eval_step, state, valloader, device=None,
             float(m["batch"])  # the batch is done on the device
             heartbeat()
     if total is None:
-        raise ValueError("the val loader yielded no batch")
+        return {"loss": 0.0, "iou": 1.0}
     total = {k: v.detach().cpu().numpy().astype(np.float64)
              for k, v in total.items()}
     n = max(float(total["batch"]), 1.0)

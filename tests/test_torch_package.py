@@ -46,7 +46,8 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.train", "lss_carla_torch.models.resnet",
             "lss_carla_torch.explore", "lss_carla_torch.tools",
             "lss_carla_torch.training.watchdog", "lss_carla_torch.utils.supervise",
-            "lss_carla_torch.utils.viz"} <= set(modules)
+            "lss_carla_torch.utils.viz", "lss_carla_torch.ops.quant",
+            "lss_carla_torch.bench", "lss_carla_torch.accuracy"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -306,26 +306,54 @@ def test_train_checkpoints_and_resume(fixture_root, tmp_path, fused_dw,
         assert resumed["state"].step == 7
 
 
+def test_empty_val_set_matches_jax(fixture_root, tmp_path, monkeypatch):
+    """A val loader that yields no batch: the port's get_val_info returns
+    what the JAX package's does (loss 0.0, IoU 1.0, no per-class list),
+    and train() takes it as any validation, so its first one saves a best
+    model at IoU 1.0 (the JAX trainer saves one too: 1.0 beats its 0.0)."""
+    from lss_carla_tpu.training.loop import get_val_info as jax_get_val_info
+    from lss_carla_torch.training import loop
+
+    def never(state, batch):
+        raise AssertionError("no batch to evaluate")
+
+    want = jax_get_val_info(never, None, [])
+    assert loop.get_val_info(never, None, [], device="cpu") == want == {
+        "loss": 0.0, "iou": 1.0}
+
+    real = loop.compile_data
+    monkeypatch.setattr(loop, "compile_data",
+                        lambda *a, **k: (real(*a, **k)[0], []))
+    out = train(fixture_root, **dict(TINY, nepochs=1), max_steps=2,
+                val_step=2, save_step=0, logdir=str(tmp_path))
+    assert out["best_val_iou"] == 1.0
+    assert load_checkpoint(tmp_path / "ckpts" / "model_best.pt")["val_iou"] == 1.0
+    vals = [r for r in map(json.loads, open(tmp_path / "metrics.jsonl"))
+            if "val/iou" in r]
+    assert [(r["step"], r["val/loss"], r["val/iou"]) for r in vals] == [
+        (2, 0.0, 1.0)]
+
+
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
     from lss_carla_torch.training.loop import UNPORTED
     assert set(UNPORTED) == {"pretrained_trunk", "n_devices", "multihost",
                              "cam_devices", "grid_devices", "dataset",
                              "nuscenes_version"}
-    with pytest.raises(NotImplementedError, match="A5, --pretrained_trunk"):
+    with pytest.raises(NotImplementedError, match="§A, --pretrained_trunk"):
         train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
     # with a ResNet trunk the JAX trainer's own check comes first
     with pytest.raises(ValueError, match="no import source exists for the resnet"):
         train(fixture_root, **dict(TINY, variant="resnet18"),
               pretrained_trunk="auto", logdir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A9, parallel modes"):
+    with pytest.raises(NotImplementedError, match="§A, parallel modes"):
         train(fixture_root, **TINY, n_devices=8, logdir=str(tmp_path))
     for key, value in (("multihost", True), ("cam_devices", 2),
                        ("grid_devices", 2)):
-        with pytest.raises(NotImplementedError, match="A9, parallel modes"):
+        with pytest.raises(NotImplementedError, match="§A, parallel modes"):
             train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
     for key, value in (("dataset", "nuscenes"),
                        ("nuscenes_version", "v1.0-trainval")):
-        with pytest.raises(NotImplementedError, match="A7, the nuScenes loader"):
+        with pytest.raises(NotImplementedError, match="§A, nuScenes"):
             train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
     with pytest.raises(TypeError, match="unexpected"):
         train(fixture_root, **TINY, no_such_flag=1, logdir=str(tmp_path))

@@ -6,8 +6,9 @@
 Phases, each printing a line of its own; every check raises, so any failure
 exits non-zero without the final result line:
 
-1. card and build: the card's name and power limit (nvidia-smi), and the
-   nvcc build of the splat kernel from the sources in this checkout;
+1. card and build: the card's name and power limit (nvidia-smi), the nvcc
+   builds of both kernels and the g++ build of the JPEG decoder from the
+   sources in this checkout, all at once;
 2. the splat kernel against its plain version (``splat_reference``) on the
    card, on seeded inputs with ~7 % of ids at the sentinel and NaN features
    at those points: (B 8, P 43,296, C 64, S 40,000) in f32 and in bf16, and
@@ -117,7 +118,32 @@ exits non-zero without the final result line:
     bf16 and int8, and the stretch B4 at bsz 4 in bf16 and int8, in turns;
 18. ``python -m lss_carla_torch.bench --mode all --iters 5 --warmup 2`` as
     a child process: its lines relayed, three metrics under bench.py's
-    names with finite positive values, the f32 step at bsz 8.
+    names with finite positive values, the f32 step at bsz 8;
+19. nuScenes at full width: a fixture from the port's generator (3 scenes
+    x 6 samples x 6 cameras at 900 x 1600, lidar sweeps, a map), the
+    original config (``configs.py::nuscenes_aug``: 5 of 6 cameras at 128 x
+    352, resize 0.193-0.225, bottom crop 0-0.22, rotation +-5.4, flips)
+    through ``train(dataset="nuscenes")``: B0, bsz 4, ``fused_dw``, cuDNN
+    TF32, 20 steps, a validation and checkpoints; the kernels' counters,
+    zeroed just before, show 16 depthwise launches a train forward and
+    the splat; the median step; the decoder's counts (validation decodes
+    natively only, no decode error anywhere); ``eval_model_iou`` on
+    ``model_best.pt`` reproduces the logged validation; the predictions of
+    ``viz_model_preds``, the map underlay's and ``lidar_check``'s compute
+    parts; the splat against its plain version on the lift and ids of a
+    5-camera train batch and a 6-camera val batch, and the depthwise
+    kernel at the 16 B0 shapes at N 20 (phase 7's limits); one train step
+    with ``fused_dw``, its launches counted;
+20. the JPEG decoder on the card's host: its build (g++, the libjpeg it
+    links) and the host CPU; the decoder against PIL on 32 fixture JPEGs
+    (crop-only path exact, since both run Pillow's libjpeg; resize + flip
+    path within one level); ``input_pipeline_images_per_sec`` with 8 threads,
+    native and PIL in turns, on ``bench.py``'s default augmentation
+    (crop-only) and the fast recipe's ``resize_lim 0.70 0.85`` (resize);
+    the fast recipe's ``train()`` loop (B0 bsz 8, bf16, 4 loader threads,
+    100 steps, 8 steps an epoch), native and PIL in six turns, each run's
+    mean step over steps 21-100, and each side's idle share against the
+    device busy time of a profile of the step alone.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -145,14 +171,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 import torch.nn.functional as F
+from PIL import Image
 
 from kernel_compare import queued_ms
 from lss_carla_torch import explore
-from lss_carla_torch.configs import DataAugConf, GridConf
+from lss_carla_torch.bench import input_images_per_sec
+from lss_carla_torch.configs import DataAugConf, GridConf, nuscenes_aug
+from lss_carla_torch.data.augment import img_transform, sample_augmentation
 from lss_carla_torch.data.fixtures import generate_fixture
+from lss_carla_torch.data.fixtures_nuscenes import generate_nuscenes_fixture
 from lss_carla_torch.data.loader import compile_data
+from lss_carla_torch.data.nusc_maps import get_local_map
+from lss_carla_torch.data.nuscenes import NuScenesDataset, compile_data_nuscenes
 from lss_carla_torch.models.efficientnet import MBConvBlock, block_plan
 from lss_carla_torch.models.lss import compile_model
+from lss_carla_torch.native import fastimage
 from lss_carla_torch.ops import mbconv_cuda, quant, splat_cuda
 from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
                                         same_pad)
@@ -766,16 +799,18 @@ def check_dw(name, x, w, s, grads: bool):
     return max_err, times
 
 
-def phase_dw(gen):
-    """Phase 7. Returns (max |dy| over the f32 shapes, the f32 shapes'
-    summed device times and bound: one train forward's 16 launches)."""
+def phase_dw(gen, N: int = 24, what: str = "one bsz-4 train forward"):
+    """Phase 7 (and phase 19 at N 20). Returns (max |dy| over the f32
+    shapes, the f32 shapes' summed device times and bound: one train
+    forward's 16 launches at N = bsz x cameras). Block 0 is checked in
+    bf16 too at phase 7's N."""
     total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
              "conv_var_mean_ms": 0.0, "call_ms": 0.0, "queued_ms": 0.0,
              "bound_ms": 0.0}
     max_err, by = 0.0, {}
-    for block, k, s, shape in dw_shapes():
-        for dtype in ((torch.float32, torch.bfloat16) if block == 0
-                      else (torch.float32,)):
+    for block, k, s, shape in dw_shapes(N):
+        for dtype in ((torch.float32, torch.bfloat16)
+                      if block == 0 and N == 24 else (torch.float32,)):
             x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
             w = 0.3 * torch.randn(shape[1], 1, k, k, generator=gen, device="cuda")
             name = (f"block {block} k{k} s{s} {tuple(shape)} "
@@ -787,7 +822,7 @@ def phase_dw(gen):
                     total[key] += t[key]
                 by[t["bound_by"]] = by.get(t["bound_by"], 0) + 1
     bound_by = max(by, key=by.get)
-    print(f"dw_conv_stats, the 16 f32 launches of one bsz-4 train forward, "
+    print(f"dw_conv_stats, the 16 f32 launches of {what} (N {N}), "
           f"device ms: kernel {total['ms']:.4f} (profiler), bound "
           f"{total['bound_ms']:.4f} ({bound_by}; the kernel at "
           f"{100 * total['bound_ms'] / total['ms']:.1f}% of it); queued back to "
@@ -1971,6 +2006,295 @@ def phase_bench():
     return {m["metric"]: m["value"] for m in metrics}
 
 
+# --- phase 19: nuScenes at full width ------------------------------------
+
+# the original LSS nuScenes config (configs.py::nuscenes_aug): 900 x 1600
+# sources, 5 of 6 cameras in training and all 6 in validation
+NUSC_STEPS, NUSC_BSZ = 20, 4
+NUSC_SCENES, NUSC_SAMPLES = 3, 6  # 2 train scenes (12 samples), 1 val (6)
+
+
+def lift_and_ids(model, batch):
+    """The lift (B, P, C) and voxel ids (B, P) that ``model`` gives the
+    splat on a host loader ``batch``."""
+    with torch.inference_mode():
+        t = [torch.as_tensor(a).cuda() for a in batch[:6]]
+        geom = model.get_geometry(*t[1:])
+        feats = model.get_cam_feats(t[0])
+        ids, _ = voxel_indices(geom, model.dx, model.bx, model.nx)
+    B = t[0].shape[0]
+    return (feats.reshape(B, -1, model.camC).contiguous(),
+            ids.reshape(B, -1).contiguous())
+
+
+def median_step_ms(run, first: int = 2) -> float:
+    """Median of the run's logged ``train/step_time`` from step ``first``
+    on (the first steps pick cuDNN's algorithms), in ms."""
+    ms = [1e3 * r["train/step_time"] for r in read_metrics(f"{run}/metrics.jsonl")
+          if "train/step_time" in r and r["step"] >= first]
+    return float(np.median(ms))
+
+
+def phase_nuscenes(tmp, seed, gen):
+    """Phase 19. Returns ({"splat": n, "dw_conv_stats": n} main-path
+    launches, the kernels' rows at the nuScenes shapes)."""
+    aug = nuscenes_aug()
+    t0 = time.perf_counter()
+    root = generate_nuscenes_fixture(
+        f"{tmp}/nusc", num_scenes=NUSC_SCENES, samples_per_scene=NUSC_SAMPLES,
+        H=aug.H, W=aug.W, seed=seed)
+    print(f"nuScenes fixture: {NUSC_SCENES} scenes x {NUSC_SAMPLES} samples x "
+          f"6 cameras at {aug.H} x {aug.W}, lidar sweeps and a map, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    run = f"{tmp}/nusc_run"
+    torch.backends.cudnn.allow_tf32 = True
+    reset_launches()  # the nuScenes path starts here
+    t0 = time.perf_counter()
+    result = train(
+        dataroot=str(root), nepochs=10, H=aug.H, W=aug.W,
+        resize_lim=aug.resize_lim, final_dim=aug.final_dim,
+        bot_pct_lim=aug.bot_pct_lim, rot_lim=aug.rot_lim,
+        rand_flip=aug.rand_flip, ncams=aug.Ncams, bsz=NUSC_BSZ, nworkers=6,
+        fused_dw=True, max_steps=NUSC_STEPS, val_step=NUSC_STEPS,
+        save_step=NUSC_STEPS, iou_log_step=1, viz_step=0, seed=seed,
+        dataset="nuscenes", logdir=run, device="cuda")
+    train_s = time.perf_counter() - t0
+    dw_train, splat_train = mbconv_cuda.launches, splat_cuda.launches
+    info = explore.eval_model_iou(str(root), f"{run}/ckpts", best=True,
+                                  dataset="nuscenes", bsz=NUSC_BSZ,
+                                  nworkers=6, device="cuda")
+    samples, extent = explore.model_preds(
+        str(root), f"{run}/ckpts", best=True, dataset="nuscenes",
+        max_batches=2, bsz=NUSC_BSZ, device="cuda")
+    launches = {"splat": splat_cuda.launches,
+                "dw_conv_stats": mbconv_cuda.launches}  # the path ends here
+    assert result["counter"] == NUSC_STEPS, result["counter"]
+    assert dw_train == DW_PER_FORWARD * NUSC_STEPS, dw_train
+    assert splat_train > NUSC_STEPS, splat_train  # train + val forwards
+    assert launches["dw_conv_stats"] == dw_train, launches  # eval: none
+    recs = read_metrics(f"{run}/metrics.jsonl")
+    losses = [r["train/loss"] for r in recs if "train/loss" in r]
+    assert losses and all(map(math.isfinite, losses)), losses
+    stats = result["decode_stats"]
+    assert set(stats["val"]) == {"native_resize"}, stats  # rotation 0
+    bad = {k for split in stats.values() for k in split
+           if k in ("pil_decode_error", "pil_size_mismatch", "pil_not_jpeg")}
+    assert not bad, stats
+    print(f"nuScenes train(): B0 at full width (5 of 6 cameras at 128 x 352 "
+          f"from 900 x 1600, D 41, 200 x 200 at 0.5 m, outC 1, pos_weight "
+          f"2.13), bsz {NUSC_BSZ}, fused_dw, cuDNN TF32, {NUSC_STEPS} steps in "
+          f"{train_s:.1f} s (6 loader threads; a validation and checkpoints "
+          f"included); losses {', '.join(f'{v:.4f}' for v in losses)}; median "
+          f"step {median_step_ms(run):.1f} ms (train/step_time, steps 2-"
+          f"{NUSC_STEPS}, synchronised every step); launches: splat "
+          f"{splat_train} ({NUSC_STEPS} train + {splat_train - NUSC_STEPS} "
+          f"validation forwards), dw_conv_stats {dw_train} (= "
+          f"{DW_PER_FORWARD} x {NUSC_STEPS}); decodes {stats}", flush=True)
+    print("eval_model_iou on the card, nuScenes, cuDNN TF32: "
+          + check_eval("nuScenes B0", run, info)
+          + f"; with viz_model_preds' predictions, splat launches "
+          f"{launches['splat'] - splat_train}", flush=True)
+    assert len(samples) == NUSC_SAMPLES, len(samples)  # 2 of 8 were padding
+    for imgs, gt, pred in samples:
+        assert imgs.shape == (6, 3, 128, 352) and gt.shape == pred.shape == (200, 200)
+        assert np.isfinite(pred).all() and 0.0 <= pred.min() <= pred.max() <= 1.0
+    torch.backends.cudnn.allow_tf32 = False
+
+    # the compute parts of the map underlay and of lidar_check
+    val_ds = NuScenesDataset(root, False, aug, GridConf())
+    poses = explore.map_poses(val_ds, str(root))
+    nmap, (x, y), yaw = poses[0]
+    lmap = get_local_map(nmap, (x, y, np.cos(yaw), np.sin(yaw)),
+                         max(abs(b) for b in extent))
+    assert all(p is not None for p in poses), poses
+    assert all(np.isfinite(g).all() for gs in lmap.values() for g in gs)
+    panels = explore.lidar_panels(str(root), max_samples=1, nsweeps=2,
+                                  device="cuda")
+    seen = [c.shape[1] for c in panels[0]["cams"]]
+    assert panels[0]["points"].shape == (5, 96) and sum(seen) > 0, seen
+    assert all(np.isfinite(c).all() for c in panels[0]["cams"])
+    if have_matplotlib():
+        explore.viz_model_preds(str(root), f"{run}/ckpts", best=True,
+                                dataset="nuscenes", map_folder=str(root),
+                                outdir=f"{tmp}/nusc_viz", max_batches=1,
+                                bsz=NUSC_BSZ, device="cuda")
+        explore.lidar_check(str(root), outdir=f"{tmp}/nusc_viz",
+                            dataset="nuscenes", max_samples=1, nsweeps=2,
+                            device="cuda")
+        rendered = f"rendered {sorted(os.listdir(f'{tmp}/nusc_viz'))}"
+    else:
+        rendered = "not rendered: no matplotlib here"
+    print(f"nuScenes map underlay: {len(poses)} val samples, each on its "
+          f"scene's map; sample 0's local map {[(k, len(v)) for k, v in lmap.items()]}"
+          f" (layer, geometries); lidar_check compute parts: {panels[0]['points'].shape[1]}"
+          f" points of 2 sweeps, seen per camera {seen}; {rendered}", flush=True)
+
+    # both kernels at this path's shapes, against their plain versions
+    model = result["state"].model.eval()
+    trainloader, valloader = compile_data_nuscenes(
+        "v1.0-mini", root, aug, GridConf(), bsz=NUSC_BSZ, nworkers=0,
+        device_normalize=True, seed=seed)
+    S = int(np.prod(model.nx))
+    rows = {}
+    for name, batch in (("5-camera train batch", next(iter(trainloader))),
+                        ("6-camera val batch", next(iter(valloader)))):
+        pts, ids = lift_and_ids(model, batch)
+        n = batch[0].shape[1]
+        assert pts.shape == (NUSC_BSZ, n * 41 * 8 * 22, 64), pts.shape
+        print(f"nuScenes splat inputs, {name}: P {pts.shape[1]}, "
+              f"{float((ids == S).float().mean()):.3f} of points at the "
+              f"sentinel", flush=True)
+        rows[name] = check_splat(f"nuScenes {name} f32 S=40000", pts, ids, S)
+    dw_err, dw_times = phase_dw(gen, NUSC_BSZ * aug.Ncams,
+                                "one nuScenes bsz-4 train forward")
+
+    # one train step with fused_dw on, on the 5-camera batch
+    step_model = compile_model(GridConf(), aug, outC=1, variant="b0",
+                               fused_dw=True, device="cuda",
+                               generator=torch.Generator().manual_seed(seed))
+    step = make_train_step(step_model, 2.13, device="cuda")
+    batch = tuple(torch.as_tensor(a).cuda() for a in next(iter(trainloader)))
+    before = (splat_cuda.launches, mbconv_cuda.launches)
+    out = step(create_train_state(step_model), batch)
+    torch.cuda.synchronize()
+    one = (splat_cuda.launches - before[0], mbconv_cuda.launches - before[1])
+    assert one == (1, DW_PER_FORWARD), one
+    print(f"one nuScenes train step (bsz 4 x 5 cameras, fused_dw): loss "
+          f"{float(out['loss']):.4f}, launches splat {one[0]}, dw_conv_stats "
+          f"{one[1]}", flush=True)
+
+    def row(err, t, n):
+        return {"launches": n, "max_abs_err": err,
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+    err, t = rows["5-camera train batch"]
+    return launches, {"splat": row(err, t, launches["splat"]),
+                      "dw_conv_stats": row(dw_err, dw_times,
+                                           launches["dw_conv_stats"])}
+
+
+# --- phase 20: the decoder on the card's host ----------------------------
+
+FAST_AUG = DataAugConf(resize_lim=(0.70, 0.85))  # recipes/simbev_fast.sh
+RECIPE_STEPS = 100  # each run reads the 10-step windows of steps 21-100
+RECIPE_TURNS = (True, False, False, True, True, False)  # native or PIL
+
+
+def host_cpu() -> str:
+    """The host CPU as the decoder's rates need it named."""
+    name = fastimage.cpu_model().split(" | ")[0]
+    flags = set(fastimage.cpu_model().split(" | ")[-1].split())
+    return (f"{name or 'model not reported'}, {os.cpu_count()} CPUs, "
+            + ", ".join(f"{f} {'yes' if f in flags else 'no'}"
+                        for f in ("avx2", "avx512f")))
+
+
+def decoder_vs_pil(files, seed):
+    """(max |native - PIL| on the crop-only path, on the resize + flip
+    path), uint8 levels, over ``files`` with seeded augmentation draws."""
+    gen = torch.Generator().manual_seed(seed)
+    crop_aug = DataAugConf()
+    resize_aug = DataAugConf(resize_lim=(0.70, 0.85), rand_flip=True)
+    worst = [0, 0]
+    for i, path in enumerate(files):
+        raw = path.read_bytes()
+        for j, conf in enumerate((crop_aug, resize_aug)):
+            resize, dims, crop, flip, rotate = sample_augmentation(
+                conf, True, gen)
+            if j == 1 and i % 2:
+                flip = True  # half the resize cases flipped, whatever the draw
+            img, _, _ = img_transform(Image.open(path), resize, dims, crop,
+                                      flip, rotate)
+            want = np.asarray(img.convert("RGB")).transpose(2, 0, 1)
+            got = (fastimage.decode_crop_u8(raw, crop, (conf.W, conf.H))
+                   if j == 0 else
+                   fastimage.decode_resize_crop_u8(raw, dims, crop, flip))
+            assert j == 1 or (dims == (conf.W, conf.H) and not flip)
+            worst[j] = max(worst[j], int(np.abs(got.astype(int) - want).max()))
+    return worst
+
+
+def phase_decoder(tmp, root, seed, card):
+    """Phase 20. ``root``: phase 8's SimBEV fixture (224 x 480)."""
+    print(f"decoder: built by {fastimage.build_info()}; host CPU {host_cpu()}",
+          flush=True)
+    bench_root = generate_fixture(f"{tmp}/bench_input", num_scenes=2,
+                                  samples_per_scene=16, H=224, W=480, seed=seed)
+    files = sorted(bench_root.rglob("*.jpg"))[:32]
+    crop_d, resize_d = decoder_vs_pil(files, seed)
+    assert resize_d <= 1, resize_d
+    assert crop_d == 0, crop_d  # the libjpeg PIL uses: one IDCT, bit-exact
+    print(f"decoder against PIL on {len(files)} fixture JPEGs (224 x 480): "
+          f"crop-only path max |diff| {crop_d} levels of 255 "
+          f"(the same libjpeg as PIL, limit 0), resize + flip path "
+          f"(resize 0.70-0.85, every other one flipped) "
+          f"max |diff| {resize_d} (limit 1)", flush=True)
+
+    # images a second through the loader, 8 threads, in turns
+    for name, conf in (("bench.py's default aug (crop-only path)", DataAugConf()),
+                       ("the fast recipe's resize_lim 0.70 0.85 (resize path)",
+                        FAST_AUG)):
+        rates, stats = {True: [], False: []}, {}
+        for native in (True, False, False, True):
+            rate, stats[native] = input_images_per_sec(
+                bench_root, conf, bsz=8, iters=10, num_workers=8,
+                use_native=native)
+            rates[native].append(rate)
+        want = "native_crop" if conf is not FAST_AUG else "native_resize"
+        assert set(stats[True]) == {want} and set(stats[False]) == {"pil_off"}, stats
+        print(f"input_pipeline_images_per_sec on {card}, host {host_cpu()}, "
+              f"{name}: native {np.mean(rates[True]):.1f} "
+              f"({', '.join(f'{r:.1f}' for r in rates[True])}), PIL "
+              f"{np.mean(rates[False]):.1f} ({', '.join(f'{r:.1f}' for r in rates[False])})"
+              f" (8 threads, bsz 8, 10 epochs of 96 images after one, in turns "
+              f"native/PIL/PIL/native); decodes {stats}", flush=True)
+
+    # the fast recipe's train() loop, native and PIL in turns
+    torch.backends.cudnn.allow_tf32 = True  # torch's default, as the recipe runs
+    kw = dict(dataroot=str(root), nepochs=20, bsz=8, nworkers=4,
+              compute_dtype="bfloat16", resize_lim=FAST_AUG.resize_lim,
+              lr_schedule="cosine", warmup_steps=500, decay_steps=4000,
+              max_steps=RECIPE_STEPS, val_step=0, save_step=0, viz_step=0,
+              iou_log_step=10, seed=seed, device="cuda")
+    loop_ms, turns, decodes = {True: [], False: []}, [], {}
+    for i, native in enumerate(RECIPE_TURNS):
+        run = f"{tmp}/recipe_{i}"
+        result = train(**kw, use_native=native, logdir=run)
+        windows = [1e3 * r["train/step_time"]
+                   for r in read_metrics(f"{run}/metrics.jsonl")
+                   if "train/step_time" in r and r["step"] > 20]
+        assert len(windows) == (RECIPE_STEPS - 20) // 10, windows
+        loop_ms[native].append(float(np.mean(windows)))
+        turns.append(f"{'native' if native else 'PIL'} {loop_ms[native][-1]:.1f}"
+                     f" (windows {min(windows):.1f}-{max(windows):.1f})")
+        decodes[native] = result["decode_stats"]["train"]
+    step = train_step_fn(False, seed, random_batch(np.random.default_rng(seed), 8),
+                         compute_dtype="bfloat16")
+    busy, text = profile_train_step(step, 3, (8, 256, 200, 200))
+    del step
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    parts = []
+    for native in (True, False):
+        ms = float(np.mean(loop_ms[native]))
+        idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / ms):.3f}"
+        parts.append(f"{'native' if native else 'PIL'} mean {ms:.1f} ms a step "
+                     f"(runs {min(loop_ms[native]):.1f}-{max(loop_ms[native]):.1f}"
+                     f"), idle share {idle}")
+    ratios = [n / p for n, p in zip(loop_ms[True], loop_ms[False])]
+    assert "pil_decode_error" not in decodes[True], decodes
+    print(f"fast recipe train() loop on {card} (B0 bsz 8, bf16, cuDNN TF32, "
+          f"resize_lim 0.70 0.85, 4 loader threads, {RECIPE_STEPS} steps on "
+          f"phase 8's fixture; each run the mean of train/step_time's 10-step "
+          f"windows of steps 21-{RECIPE_STEPS}); runs in turns: "
+          f"{'; '.join(turns)}; {'; '.join(parts)}; native / PIL in the "
+          f"{len(ratios)} pairs of turns {min(ratios):.3f}-{max(ratios):.3f}; "
+          f"idle share = 1 - device busy / loop ms, with device busy "
+          f"{busy if busy is None else round(busy, 3)} ms a step from a "
+          f"profile of the same bf16 step alone on random batches ({text}); "
+          f"decodes {decodes}", flush=True)
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
@@ -2013,15 +2337,21 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
     libs = (splat_cuda.LIB, mbconv_cuda.LIB)
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc a source, at once
+    # one nvcc a source and the decoder's g++, all at once
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        decoder = pool.submit(fastimage.load)
         built = list(pool.map(lambda lib: lib.build(), libs))
+        decoder.result()
     for lib, path in zip(libs, built):
         ptxas = [ln.strip().replace("ptxas info    : ", "")
                  for ln in lib.build_log.splitlines()
                  if "registers" in ln or "spill stores" in ln]
         print(f"build: {lib.source.name} -> {path.name}; "
               f"{' | '.join(ptxas) or 'cached'}", flush=True)
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"build: {fastimage.SOURCE.name} -> {fastimage.library_path().name} "
+          f"(g++, host code: the JPEG decoder)", flush=True)
+    print(f"build: both kernels and the decoder in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 2. the kernel against its plain version
     at(2)
@@ -2123,15 +2453,23 @@ def main(argv=None) -> int:
         int8_launches = phase_int8(tmp, rng, args.seed, b0_run)
         at(18)
         phase_bench()
-        at(19)  # the end
+
+        # 19. nuScenes at full width; 20. the decoder on the card's host
+        at(19)
+        nusc_launches, nusc_rows = phase_nuscenes(tmp, args.seed, gen)
+        at(20)
+        phase_decoder(tmp, root, args.seed, card)
+        at(21)  # the end
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training + {stretch_launches['splat']} stretch (bf16) + "
           f"{resnet_launches} ResNet-18 serving and training + "
-          f"{explore_launches} explore tools + {int8_launches} int8 serving; "
+          f"{explore_launches} explore tools + {int8_launches} int8 serving + "
+          f"{nusc_launches['splat']} nuScenes; "
           f"dw_conv_stats {dw_launches} "
           f"training + {stretch_launches['dw_conv_stats']} stretch (bf16) + 0 "
-          f"ResNet + 0 explore + 0 int8 (eval mode)", flush=True)
+          f"ResNet + 0 explore + 0 int8 (eval mode) + "
+          f"{nusc_launches['dw_conv_stats']} nuScenes", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def stretch_row(name):
@@ -2145,15 +2483,18 @@ def main(argv=None) -> int:
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
                 "launches": (launches + splat_train + stretch_launches["splat"]
                              + resnet_launches + explore_launches
-                             + int8_launches),
+                             + int8_launches + nusc_launches["splat"]),
                 "max_abs_err": max_err, **times,
-                "stretch_bf16": stretch_row("splat")},
+                "stretch_bf16": stretch_row("splat"),
+                "nuscenes": nusc_rows["splat"]},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
-                "launches": dw_launches + stretch_launches["dw_conv_stats"],
+                "launches": (dw_launches + stretch_launches["dw_conv_stats"]
+                             + nusc_launches["dw_conv_stats"]),
                 "max_abs_err": dw_err, **dw_times,
-                "stretch_bf16": stretch_row("dw_conv_stats")}]
+                "stretch_bf16": stretch_row("dw_conv_stats"),
+                "nuscenes": nusc_rows["dw_conv_stats"]}]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ weights and inputs on the card. ``--mode all`` prints three JSON lines, as
 (suffixes ``_bfloat16``, ``_resnet18``, ...), ``--mode step`` also
 ``--accum`` (``_accum{N}``, ms per optimizer step) and ``--fused_dw``
 (``_fused_dw``), ``--mode infer`` also ``--quantize`` (int8 convs,
-``ops/quant.py``; ``_int8``). ``--mode input`` times the threaded PIL
-loader (``input_pipeline_images_per_sec``). The train step is the port's
+``ops/quant.py``; ``_int8``). ``--mode input`` times the threaded
+loader through the native JPEG decoder (``input_pipeline_images_per_sec``,
+``data/decode.py``). The train step is the port's
 ``make_train_step`` (forward, weighted BCE, backward, clip, Adam).
 
 Timing: JAX chains the iterations inside one jit, which eager PyTorch
@@ -175,31 +176,41 @@ def bench_infer(bsz, iters, dtype, quantize=False, quant_min_channels=64,
     }), flush=True)
 
 
-def bench_input(bsz: int, iters: int):
-    """Host input-pipeline throughput: images/sec through the threaded
-    loader (PIL decode, 8 threads) on a fixture of 2 scenes x 16 samples."""
-    from lss_carla_torch.data.fixtures import generate_fixture
+def input_images_per_sec(root, aug, bsz: int, iters: int,
+                         num_workers: int = 8, use_native: bool = True):
+    """Images a second through the threaded train loader over the SimBEV
+    fixture ``root`` (one warm-up epoch, then ``iters`` epochs), and the
+    dataset's decode counts (``NativeDecoder.stats``)."""
     from lss_carla_torch.data.loader import DataLoader
     from lss_carla_torch.data.simbev import SegmentationData
+
+    ds = SegmentationData(root, is_train=True, data_aug_conf=aug,
+                          grid_conf=GridConf(), use_native=use_native)
+    dl = DataLoader(ds, batch_size=bsz, shuffle=True, drop_last=True,
+                    num_workers=num_workers)
+    for _ in dl:  # warmup epoch
+        pass
+    t0 = time.perf_counter()
+    n_img = 0
+    for _ in range(iters):
+        for b in dl:
+            n_img += b[0].shape[0] * b[0].shape[1]
+    return n_img / (time.perf_counter() - t0), dict(ds.decoder.stats)
+
+
+def bench_input(bsz: int, iters: int):
+    """Host input-pipeline throughput: images/sec through the threaded
+    loader (the native decoder, 8 threads) on a fixture of 2 scenes x 16
+    samples at bench.py's default augmentation (the crop-only path)."""
+    from lss_carla_torch.data.fixtures import generate_fixture
 
     with tempfile.TemporaryDirectory(prefix="bench_input_") as tmp:
         root = generate_fixture(tmp, num_scenes=2, samples_per_scene=16,
                                 H=224, W=480)
-        ds = SegmentationData(root, is_train=True, data_aug_conf=DataAugConf(),
-                              grid_conf=GridConf())
-        dl = DataLoader(ds, batch_size=bsz, shuffle=True, drop_last=True,
-                        num_workers=8)
-        for _ in dl:  # warmup epoch
-            pass
-        t0 = time.perf_counter()
-        n_img = 0
-        for _ in range(iters):
-            for b in dl:
-                n_img += b[0].shape[0] * b[0].shape[1]
-        dt = time.perf_counter() - t0
+        rate, _ = input_images_per_sec(root, DataAugConf(), bsz, iters)
     print(json.dumps({
         "metric": "input_pipeline_images_per_sec",
-        "value": round(n_img / dt, 1),
+        "value": round(rate, 1),
         "unit": "img/s",
         "vs_baseline": None,
     }), flush=True)

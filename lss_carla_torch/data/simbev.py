@@ -16,9 +16,16 @@
 
 Items are numpy arrays in the reference layouts: imgs (N, 3, H, W), uint8
 with ``device_normalize`` (normalised on the device) or ImageNet-normalised
-f32. Images decode with PIL only: the JAX package's native decoder
-(``NativeDecoder``) and ``viewpoint_override`` are not ported yet. Every
-random draw (camera subset, augmentation, ``extrinsic_noise``) comes from
+f32. Images decode through ``data/decode.py::NativeDecoder``: the C++
+kernels with ``use_native`` (the default), PIL with ``use_native=False``
+or for what the kernels do not cover (a rotation, a file that is not a
+JPEG); either way the homography is ``post_homography``'s.
+``viewpoint_override`` ({camera name: orientation}) takes a camera's
+image, intrinsics and extrinsics from another rig orientation of the same
+sample token (the CVT loader's viewchange,
+``cvt_simbev_dataloader.py:240-247``), or from the base sample where that
+orientation lacks the token. Every random draw (camera subset,
+augmentation, ``extrinsic_noise``) comes from
 the dataset's ``torch.Generator``, seeded from ``seed``, one sample's draws
 under one lock; with several loader threads, which sample gets which draws
 depends on thread timing.
@@ -33,11 +40,10 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
-from PIL import Image
 
 from lss_carla_torch.configs import DataAugConf, GridConf
-from lss_carla_torch.data.augment import img_transform, sample_augmentation
-from lss_carla_torch.ops.image import normalize_img
+from lss_carla_torch.data.augment import post_homography, sample_augmentation
+from lss_carla_torch.data.decode import USE_NATIVE, NativeDecoder
 
 CAMERA_ORDER = [
     'front_left', 'front', 'front_right',
@@ -99,6 +105,7 @@ class SimBEVDataset:
                  orientation: str = "yaw0pitch0", extrinsic_noise=None,
                  label_mode: str = "vehicle_binary",
                  label_classes=(0, 1, 2, 3), device_normalize: bool = False,
+                 use_native: bool = USE_NATIVE, viewpoint_override=None,
                  seed: int = 0):
         if label_mode not in ("vehicle_binary", "multiclass"):
             raise ValueError(f"unknown label_mode: {label_mode}")
@@ -114,6 +121,14 @@ class SimBEVDataset:
         self.label_classes = tuple(label_classes)
         self.device_normalize = device_normalize
         self.samples = scan_samples(dataroot, is_train, orientation)
+        self.viewpoint_override = dict(viewpoint_override or {})
+        # orientation -> {token: sample} of each override orientation
+        self._override_lookup = {
+            ov: {s.get("token"): s for s in scan_samples(dataroot, is_train, ov)}
+            for ov in set(self.viewpoint_override.values())}
+        self.decoder = NativeDecoder(
+            (self.data_aug_conf.W, self.data_aug_conf.H),
+            device_normalize=device_normalize, use_native=use_native)
         self.generator = torch.Generator().manual_seed(int(seed))
         self._lock = threading.Lock()
         print(self)
@@ -140,21 +155,21 @@ class SimBEVDataset:
         return cams, aug, noise
 
     def get_image_data(self, sample, cam_indices, aug, noise=None):
-        resize, resize_dims, crop, flip, rotate = aug
+        post_rot2, post_tran2 = post_homography(aug[0], *aug[2:])
         imgs, rots, trans, intrins, post_rots, post_trans = [], [], [], [], [], []
         for i, cam_idx in enumerate(cam_indices):
-            intrin = np.asarray(sample["intrinsics"][cam_idx], dtype=np.float32)
-            extrin = np.asarray(sample["extrinsics"][cam_idx], dtype=np.float32)
+            src = sample
+            ov = self.viewpoint_override.get(CAMERA_ORDER[cam_idx])
+            if ov is not None:
+                src = self._override_lookup[ov].get(sample.get("token"), sample)
+            intrin = np.asarray(src["intrinsics"][cam_idx], dtype=np.float32)
+            extrin = np.asarray(src["extrinsics"][cam_idx], dtype=np.float32)
             rot, tran = extrin[:3, :3], extrin[:3, 3]
             if noise is not None:
                 d_rot, d_tran = noise[i]
                 rot, tran = (d_rot @ rot).astype(np.float32), tran + d_tran
-            img = Image.open(self.dataroot / sample["images"][cam_idx])
-            img, post_rot2, post_tran2 = img_transform(
-                img, resize, resize_dims, crop, flip, rotate)
-            rgb = np.asarray(img.convert("RGB"))
-            chw = (rgb if self.device_normalize else normalize_img(rgb)).transpose(2, 0, 1)
-            imgs.append(np.ascontiguousarray(chw))  # NCHW in memory too
+            imgs.append(self.decoder.decode(
+                self.dataroot / src["images"][cam_idx], aug))
             post_rot3 = np.eye(3, dtype=np.float32)
             post_tran3 = np.zeros(3, dtype=np.float32)
             post_rot3[:2, :2] = post_rot2

@@ -1,20 +1,19 @@
-"""The reference's ``src/tools.py`` symbol surface, SimBEV part: counterpart
-of ``lss_carla_tpu/tools.py``.
+"""The reference's ``src/tools.py`` symbol surface: counterpart of
+``lss_carla_tpu/tools.py``.
 
 Users of the reference import these names from ``src.tools``:
 
     gen_dx_bx, get_rot, img_transform, normalize_img, denormalize_img,
     ego_to_cam, cam_to_ego, get_only_in_img_mask,
     SimpleLoss, get_batch_iou, get_val_info, add_ego,
+    get_nusc_maps, get_local_map, plot_nusc_map, get_lidar_data,
     cumsum_trick, quick_cumsum
 
 The reference's cumsum machinery (``cumsum_trick``/``QuickCumsum``) sums
 point features per voxel with a gather backward; here both names are
 ``splat_scatter_add``, the JAX package's signature on the port's splat
-(the CUDA kernel on a CUDA tensor). The nuScenes symbols
-(``get_nusc_maps``, ``get_local_map``, ``plot_nusc_map``,
-``get_lidar_data``) wait for the nuScenes slice (``ROADMAP.md`` §A,
-nuScenes).
+(the CUDA kernel on a CUDA tensor). The nuScenes symbols are the
+devkit-free ones of ``data/nusc_maps.py`` and ``data/nuscenes.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +22,9 @@ import numpy as np
 import torch
 
 from lss_carla_torch.data.augment import img_transform as _img_transform
+from lss_carla_torch.data.nusc_maps import (  # noqa: F401
+    get_local_map, get_nusc_maps, plot_nusc_map)
+from lss_carla_torch.data.nuscenes import get_lidar_data  # noqa: F401
 from lss_carla_torch.ops.geometry import (  # noqa: F401
     cam_to_ego, ego_to_cam, gen_dx_bx, get_only_in_img_mask, get_rot)
 from lss_carla_torch.ops.image import (  # noqa: F401

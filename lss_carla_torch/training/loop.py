@@ -1,14 +1,14 @@
 """The single-device training loop: counterpart of
 ``lss_carla_tpu/training/loop.py`` (reference ``train_simbev.py:23-460``).
 
-SimBEV loader (-> ``stack_microbatches`` with ``accum_steps`` > 1) ->
-``prefetch_to_device`` (pinned host batches, copies on the consumer
-thread) -> eager train step (forward, weighted BCE, backward, optax-rule
-clip, Adam, EMA) -> validation over the whole val set -> torch checkpoints
-in the reference's format, with best-IoU tracking and resume. SIGTERM or
-SIGINT saves a resumable checkpoint and stops. Metric syncs are batched:
-the loss is read every 10 steps and the IoU and step time every
-``iou_log_step`` steps. ``compute_dtype`` "bfloat16" runs the model in
+SimBEV or nuScenes loader (``dataset``; -> ``stack_microbatches`` with
+``accum_steps`` > 1) -> ``prefetch_to_device`` (pinned host batches,
+copies on the consumer thread) -> eager train step (forward, weighted
+BCE, backward, optax-rule clip, Adam, EMA) -> validation over the whole
+val set -> torch checkpoints in the reference's format, with best-IoU
+tracking and resume. SIGTERM or SIGINT saves a resumable checkpoint and
+stops. Metric syncs are batched: the loss is read every 10 steps and the
+IoU and step time every ``iou_log_step`` steps. ``compute_dtype`` "bfloat16" runs the model in
 bf16 (``models/lss.py``).
 
 With ``ema_decay > 0`` validation, best-IoU tracking and ``model_best.pt``'s
@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from lss_carla_torch.configs import DataAugConf, GridConf
+from lss_carla_torch.data.decode import USE_NATIVE
 from lss_carla_torch.data.loader import (compile_data, prefetch_to_device,
                                          stack_microbatches)
 from lss_carla_torch.models.lss import compile_model
@@ -63,8 +64,6 @@ UNPORTED = {
     "multihost": ((False,), "§A, parallel modes"),
     "cam_devices": ((1,), "§A, parallel modes"),
     "grid_devices": ((1,), "§A, parallel modes"),
-    "dataset": (("simbev",), "§A, nuScenes"),
-    "nuscenes_version": (("v1.0-mini",), "§A, nuScenes"),
 }
 
 
@@ -88,6 +87,13 @@ def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
         raise ValueError("--pretrained_trunk imports efficientnet_pytorch "
                          "weights; no import source exists for the "
                          "resnet trunk variants")
+
+
+def decode_stats(loader) -> dict:
+    """The decode counts of a loader's dataset (``NativeDecoder.stats``:
+    decodes by path and reason); {} for an iterable without one."""
+    decoder = getattr(getattr(loader, "dataset", None), "decoder", None)
+    return {} if decoder is None else dict(decoder.stats)
 
 
 def get_val_info(eval_step, state, valloader, device=None,
@@ -206,6 +212,10 @@ def train(
     extrinsic_noise=None,             # (rot_deg_std, trans_m_std) or None
     device_normalize: bool = True,    # ship uint8 images, normalise on the
                                       # device
+    dataset: str = "simbev",          # or "nuscenes" (data/nuscenes.py)
+    nuscenes_version: str = "v1.0-mini",
+    use_native: bool = USE_NATIVE,    # the C++ JPEG decoder (False: PIL;
+                                      # data/decode.py)
     max_steps: Optional[int] = None,  # stop early (smoke and bench runs)
     profile_dir: Optional[str] = None,  # a torch.profiler trace of the run
     watchdog_secs: int = 0,           # stall detector (0 = off): dumps the
@@ -219,8 +229,10 @@ def train(
     device="cuda",
     **unported,
 ):
-    """Train LSS on SimBEV on one device; the JAX trainer's keywords, minus
-    those in ``UNPORTED`` (which raise unless off). ``device`` is "cuda"
+    """Train LSS on SimBEV or nuScenes (``dataset``) on one device; the JAX
+    trainer's keywords, minus those in ``UNPORTED`` (which raise unless
+    off), plus ``use_native``. nuScenes takes only
+    ``label_mode="vehicle_binary"`` and no ``extrinsic_noise``, as in JAX. ``device`` is "cuda"
     unless the caller asks for the CPU; no GPU raises. Weights are drawn
     from a generator seeded ``seed``, and ``torch.manual_seed(seed)`` seeds
     dropout and drop-connect. The step counter, ``max_steps``, ``val_step``
@@ -228,9 +240,22 @@ def train(
     mean wall time of the steps since the previous IoU log, synchronised.
 
     Returns {"counter", "start_counter", "best_val_iou" (None without a
-    validation), "state"}."""
+    validation), "state", "decode_stats" ({"train": ..., "val": ...}: the
+    datasets' ``NativeDecoder.stats``, decodes by path and reason)}."""
     check_pretrained_trunk(unported.get("pretrained_trunk"), variant)
     check_unported(**unported)
+    if dataset not in ("simbev", "nuscenes"):
+        raise ValueError(f"unknown dataset: {dataset!r}")
+    if dataset == "nuscenes":
+        # the nuScenes loader makes binary vehicle masks only; accepting
+        # these would broadcast shapes through the loss
+        if label_mode != "vehicle_binary":
+            raise ValueError(f"dataset='nuscenes' supports only "
+                             f"label_mode='vehicle_binary' (got "
+                             f"{label_mode!r})")
+        if extrinsic_noise is not None:
+            raise ValueError("extrinsic_noise is not implemented for the "
+                             "nuScenes loader")
     dev = resolve_device(device)
     torch.manual_seed(seed)
     grid_conf = GridConf(xbound=tuple(xbound), ybound=tuple(ybound),
@@ -253,7 +278,7 @@ def train(
         else f"efficientnet-{variant}"
     print("=" * 80)
     print("Training configuration:")
-    print(f"  dataroot: {dataroot}")
+    print(f"  dataroot: {dataroot} ({dataset})")
     print(f"  logdir: {logdir}")
     print(f"  device: {dev}  batch size: {bsz} x {accum_steps} microbatches")
     print(f"  lr: {lr}  epochs: {nepochs}  cams: {ncams}")
@@ -262,13 +287,21 @@ def train(
           f"{fused_dw}  compute: {compute_dtype}")
     print("=" * 80)
 
-    trainloader, valloader = compile_data(
-        "unused", dataroot, data_aug_conf, grid_conf, bsz=bsz,
-        nworkers=nworkers, seed=seed,
-        dataset_kwargs={"label_mode": label_mode,
-                        "label_classes": tuple(label_classes),
-                        "extrinsic_noise": extrinsic_noise,
-                        "device_normalize": device_normalize})
+    if dataset == "nuscenes":
+        from lss_carla_torch.data.nuscenes import compile_data_nuscenes
+        trainloader, valloader = compile_data_nuscenes(
+            nuscenes_version, dataroot, data_aug_conf, grid_conf, bsz=bsz,
+            nworkers=nworkers, device_normalize=device_normalize,
+            use_native=use_native, seed=seed)
+    else:
+        trainloader, valloader = compile_data(
+            "unused", dataroot, data_aug_conf, grid_conf, bsz=bsz,
+            nworkers=nworkers, seed=seed,
+            dataset_kwargs={"label_mode": label_mode,
+                            "label_classes": tuple(label_classes),
+                            "extrinsic_noise": extrinsic_noise,
+                            "device_normalize": device_normalize,
+                            "use_native": use_native})
     print(f"Train batches: {len(trainloader)}  Val batches: {len(valloader)}")
     if len(trainloader) == 0:
         raise ValueError(f"fewer train samples than one batch of {bsz}")
@@ -529,4 +562,6 @@ def train(
     ckpt.close()
     print(f"Best validation IoU: {best_val_iou}")
     return {"counter": counter, "start_counter": start_counter,
-            "best_val_iou": best_val_iou, "state": state}
+            "best_val_iou": best_val_iou, "state": state,
+            "decode_stats": {"train": decode_stats(trainloader),
+                             "val": decode_stats(valloader)}}

@@ -29,6 +29,14 @@ from test_torch_convert import randomize_variables
 STATS_TOL = dict(rtol=1e-6, atol=1e-7)
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 

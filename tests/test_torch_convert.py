@@ -15,6 +15,14 @@ from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.utils import convert as C
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def randomize_variables(variables, rng):
     """JAX variables with numpy-random BN stats and affine params, so eval
     mode and the BN transplant are real tests. Returns numpy nested dicts."""

@@ -44,6 +44,14 @@ EMA_TOL = dict(rtol=1e-6, atol=1e-6)
 RECAL_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
 

@@ -5,8 +5,8 @@ the same fixture val set (loss 1e-4 relative, IoU +-1e-3: both sum the
 same f32 model in other orders); checkpoint selection by ``best`` and
 ``use_ema``; the PNGs of ``viz_model_preds`` and ``lidar_check``;
 ``splat_check``'s two sides; the CLI's flags, its four commands on a CPU
-fixture, and the nuScenes and int8 flags, which raise naming their
-``ROADMAP.md`` items."""
+fixture, and the nuScenes and int8 flags (the nuScenes modes against JAX
+are in test_torch_nuscenes.py and test_torch_nusc_maps.py)."""
 
 import os
 import subprocess
@@ -33,6 +33,7 @@ from lss_carla_tpu.training.step import make_eval_step as jax_make_eval_step
 from lss_carla_torch import explore
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.data.fixtures import generate_fixture
+from lss_carla_torch.data.fixtures_nuscenes import generate_nuscenes_fixture
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.training.loop import get_val_info
 from lss_carla_torch.training.step import make_eval_step
@@ -85,8 +86,9 @@ def _port_model(variant="slim", seed=0):
 def test_eval_model_iou_matches_jax_get_val_info(fixture_root, tmp_path):
     """Random JAX variables (randomised BN stats), converted into a port
     checkpoint: the port tool's loss and IoU over the whole val set equal
-    the JAX package's get_val_info over its own loader (PIL decode) of the
-    same fixture."""
+    the JAX package's get_val_info over its own loader of the same
+    fixture, both decoding with the native decoder (their defaults; the
+    two libraries give the same pixels)."""
     rng = np.random.default_rng(50)
     jm = jax_compile_model(JGrid(**GRID), JAug(**AUG), outC=1, variant="slim")
     B, N = 1, 6
@@ -95,7 +97,8 @@ def test_eval_model_iou_matches_jax_get_val_info(fixture_root, tmp_path):
               jnp.tile(jnp.eye(3), (B, N, 1, 1)), jnp.zeros((B, N, 3)))
     variables = random_variables(jm, sample, rng)
     jds = JS.SegmentationData(fixture_root, False, JAug(**AUG), JGrid(**GRID),
-                              use_native=False)
+                              use_native=True)
+    assert jds._native
     valloader = JLd.DataLoader(jds, 2, pad_last=True, num_workers=0)
     # centre the head's bias on the first batch's logits, so that about
     # half the cells predict a vehicle and the IoU is not trivially 0
@@ -197,10 +200,14 @@ def test_splat_check_returns_both_sides(fixture_root, tmp_path, with_data):
     assert float(a["grad"].abs().max()) > 0
 
 
-def test_cli_parses_the_jax_flags_and_refuses_what_waits(fixture_root):
-    """The JAX CLI's flags parse for every command; --dataset nuscenes and
-    --map_folder raise naming the nuScenes item of ROADMAP.md §A; --quantize
-    is ported, so it goes on to read the (missing) checkpoint."""
+def test_cli_parses_the_jax_flags_and_refuses_what_waits(fixture_root, tmp_path,
+                                                         monkeypatch):
+    """The JAX CLI's flags parse for every command; --dataset nuscenes,
+    --version and --map_folder are ported (lidar_check runs on a nuScenes
+    fixture; eval and viz reach its loader and then the missing
+    checkpoint); multiclass flags with nuScenes and the map underlay on
+    SimBEV raise ValueError; --quantize is ported, so it goes on to read
+    the (missing) checkpoint."""
     p = explore.build_parser()
     a = p.parse_args(["eval_model_iou", "--dataroot", "d", "--checkpoint", "c",
                       "--best", "--ema", "--bsz", "3", "--variant", "resnet34",
@@ -219,12 +226,23 @@ def test_cli_parses_the_jax_flags_and_refuses_what_waits(fixture_root):
             "--W", "128", "--checkpoint", "c"]
     with pytest.raises(SystemExit):  # eval_model_iou takes a checkpoint
         explore.main(["eval_model_iou", *base[:-2]])
-    with pytest.raises(NotImplementedError, match="§A, nuScenes"):
-        explore.main(["eval_model_iou", *base, "--dataset", "nuscenes"])
-    with pytest.raises(NotImplementedError, match="§A, nuScenes"):
+    nusc = generate_nuscenes_fixture(tmp_path / "nusc", num_scenes=2,
+                                     samples_per_scene=1, H=112, W=240)
+    nbase = ["--dataroot", str(nusc), "--device", "cpu", "--H", "112", "--W",
+             "240", "--checkpoint", "c", "--dataset", "nuscenes"]
+    with pytest.raises(FileNotFoundError, match="c"):
+        explore.main(["eval_model_iou", *nbase])
+    with pytest.raises(ValueError, match="vehicle_binary"):
+        explore.main(["eval_model_iou", *nbase, "--label_mode", "multiclass"])
+    with pytest.raises(FileNotFoundError, match="tables not found: .*v1.0-trainval"):
+        explore.main(["eval_model_iou", *nbase, "--version", "v1.0-trainval"])
+    with pytest.raises(FileNotFoundError, match="c"):
+        explore.main(["viz_model_preds", *nbase, "--map_folder", str(nusc)])
+    with pytest.raises(ValueError, match="needs dataset='nuscenes'"):
         explore.main(["viz_model_preds", *base, "--map_folder", "m"])
-    with pytest.raises(NotImplementedError, match="§A, nuScenes"):
-        explore.main(["lidar_check", *base[:-2], "--dataset", "nuscenes"])
+    monkeypatch.chdir(tmp_path)
+    paths = explore.main(["lidar_check", *nbase[:-4], "--dataset", "nuscenes"])
+    assert [Path(p).name for p in paths] == ["lcheck00000.png"]
     with pytest.raises(FileNotFoundError):
         explore.main(["eval_model_iou", *base, "--quantize"])
 

@@ -30,6 +30,14 @@ from torch_twin import randomize_bn_stats
 from util import tiny_aug, tiny_grid
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def rig(rng, B, N, final_dim):
     """A camera rig whose frustums land in the grid: N cameras around the
     ego at 1.5 m, optical axis level, small augmentation."""

@@ -30,6 +30,14 @@ from test_torch_convert import load_port, randomize_variables
 TOL = dict(atol=2e-4, rtol=1e-3)
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def _jax_run(module, x, rng):
     """Init ``module`` on x (jitted: eager init costs seconds of op-by-op
     compiles), randomise its BN, apply it in eval mode. Returns (variables,

@@ -47,7 +47,12 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.explore", "lss_carla_torch.tools",
             "lss_carla_torch.training.watchdog", "lss_carla_torch.utils.supervise",
             "lss_carla_torch.utils.viz", "lss_carla_torch.ops.quant",
-            "lss_carla_torch.bench", "lss_carla_torch.accuracy"} <= set(modules)
+            "lss_carla_torch.bench", "lss_carla_torch.accuracy",
+            "lss_carla_torch.native.__init__", "lss_carla_torch.native.fastimage",
+            "lss_carla_torch.data.decode", "lss_carla_torch.data.nuscenes",
+            "lss_carla_torch.data.nusc_maps",
+            "lss_carla_torch.data.fixtures_nuscenes",
+            "lss_carla_torch.train_nuscenes"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -120,6 +125,8 @@ def test_explore_tools_and_resnet_raise_without_gpu(no_gpu, tmp_path):
                  lambda: explore.splat_check(),
                  lambda: explore.frustum_points(nowhere),
                  lambda: explore.lidar_check(nowhere),
+                 lambda: explore.lidar_check(nowhere, dataset="nuscenes"),
+                 lambda: explore.lidar_panels(nowhere),
                  lambda: explore.main(["splat_check"])):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             call()

@@ -26,6 +26,14 @@ from lss_carla_tpu.utils.convert import _conv, _depthwise
 ATOL = 2e-5
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def _to_nhwc(x_nchw):
     return np.transpose(x_nchw, (0, 2, 3, 1))
 

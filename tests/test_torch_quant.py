@@ -288,8 +288,10 @@ def test_eval_model_iou_quantize_matches_jax(fixture_root, tmp_path):
               jnp.zeros((1, 6, 3)), jnp.tile(jnp.eye(3), (1, 6, 1, 1)),
               jnp.tile(jnp.eye(3), (1, 6, 1, 1)), jnp.zeros((1, 6, 3)))
     variables = random_variables(jm, sample, rng)
+    # the native decoder on both sides (the port's loader default)
     jds = JS.SegmentationData(fixture_root, False, JAug(**AUG), JGrid(**GRID),
-                              use_native=False)
+                              use_native=True)
+    assert jds._native
     valloader = JLd.DataLoader(jds, 2, pad_last=True, num_workers=0)
     jstate = JState.TrainState.create(
         apply_fn=jm.apply, params=variables["params"], tx=optax.identity(),

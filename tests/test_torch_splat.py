@@ -24,6 +24,14 @@ GRIDS = {
 }
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 @pytest.mark.parametrize("grid", sorted(GRIDS))
 def test_voxel_indices_exact(rng, grid):
     dx, bx, nx = JG.gen_dx_bx(*GRIDS[grid])

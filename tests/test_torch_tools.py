@@ -1,5 +1,6 @@
-"""The port's reference symbol surface (``lss_carla_torch/tools.py``, the
-SimBEV part of ``lss_carla_tpu/tools.py``) and the geometry and image
+"""The port's reference symbol surface (``lss_carla_torch/tools.py``,
+counterpart of ``lss_carla_tpu/tools.py``; its nuScenes symbols are held
+in test_torch_nuscenes.py and test_torch_nusc_maps.py) and the geometry and image
 helpers behind it, against the JAX package on the CPU: ``get_rot``,
 ``ego_to_cam``, ``cam_to_ego``, ``get_only_in_img_mask``,
 ``denormalize_img``, ``img_transform`` (the reference signature) and
@@ -27,7 +28,9 @@ def test_reference_symbols_importable():
     for name in ("gen_dx_bx", "get_rot", "img_transform", "normalize_img",
                  "denormalize_img", "ego_to_cam", "cam_to_ego",
                  "get_only_in_img_mask", "SimpleLoss", "get_batch_iou",
-                 "get_val_info", "add_ego", "cumsum_trick", "quick_cumsum"):
+                 "get_val_info", "add_ego", "cumsum_trick", "quick_cumsum",
+                 "get_nusc_maps", "get_local_map", "plot_nusc_map",
+                 "get_lidar_data"):
         assert hasattr(T, name), name
     assert T.cumsum_trick is T.quick_cumsum is T.splat_scatter_add
 

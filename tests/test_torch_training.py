@@ -44,6 +44,14 @@ from util import tiny_aug, tiny_grid
 # --- loss and metrics (f32 on both sides; softplus forms differ by ulps)
 
 
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator: the session one in conftest.py stays the
+    JAX tests' alone, so their draws do not depend on which port files share
+    their worker."""
+    return np.random.default_rng(0)
+
+
 def _logits_targets(rng, B=3, C=1):
     logits = (3 * rng.normal(size=(B, C, 8, 8))).astype(np.float32)
     targets = (rng.uniform(size=(B, C, 8, 8)) < 0.3).astype(np.float32)
@@ -214,14 +222,16 @@ def fixture_root(tmp_path_factory):
 @pytest.mark.parametrize("device_normalize", [True, False])
 def test_val_loader_matches_jax_loader(fixture_root, device_normalize):
     """Validation batches (no randomness) from the port's SegmentationData
-    and DataLoader equal the JAX loader's with its PIL path: bit for bit,
-    padded last batch and validity mask included."""
+    and DataLoader equal the JAX loader's, both on their PIL paths
+    (``use_native=False``; the native paths are held in
+    test_torch_fastimage.py): bit for bit, padded last batch and validity
+    mask included."""
     aug = dict(H=64, W=128, final_dim=(32, 64))
     from lss_carla_tpu.configs import DataAugConf as JAug, GridConf as JGrid
     jds = JS.SegmentationData(fixture_root, False, JAug(**aug), JGrid(),
                               use_native=False, device_normalize=device_normalize)
     tds = S.SegmentationData(fixture_root, False, DataAugConf(**aug), GridConf(),
-                             device_normalize=device_normalize)
+                             device_normalize=device_normalize, use_native=False)
     assert len(jds) == len(tds) == 3
     want = list(JLd.DataLoader(jds, 2, pad_last=True, num_workers=0))
     got = list(DataLoader(tds, 2, pad_last=True, num_workers=2))
@@ -234,6 +244,36 @@ def test_val_loader_matches_jax_loader(fixture_root, device_normalize):
     assert got[0][0].flags.c_contiguous
     dev = list(prefetch_to_device(iter(got), "cpu"))
     assert all(torch.equal(torch.from_numpy(g), d) for g, d in zip(got[1], dev[1]))
+
+
+@pytest.mark.parametrize("override", [{"front": "yaw30pitch0"},
+                                      {"back": "yaw30pitch0", "front_left": "yaw30pitch0"}])
+def test_viewpoint_override_matches_jax(tmp_path, override):
+    """``viewpoint_override`` swaps the named cameras' image, intrinsics and
+    extrinsics for another orientation's of the same token, as the JAX
+    dataset does (validation items, PIL paths on both sides: bit for
+    bit); a token the orientation lacks keeps the base sample's."""
+    from lss_carla_tpu.configs import DataAugConf as JAug, GridConf as JGrid
+    kw = dict(num_scenes=2, samples_per_scene=2, H=64, W=128,
+              orientations=("yaw0pitch0", "yaw30pitch0"))
+    root = F.generate_fixture(tmp_path, **kw)
+    aug = dict(H=64, W=128, final_dim=(32, 64))
+    tds = S.SegmentationData(root, False, DataAugConf(**aug), GridConf(),
+                             viewpoint_override=override, use_native=False)
+    jds = JS.SegmentationData(root, False, JAug(**aug), JGrid(),
+                              viewpoint_override=override, use_native=False)
+    base = S.SegmentationData(root, False, DataAugConf(**aug), GridConf(),
+                              use_native=False)
+    swapped = [S.CAMERA_ORDER.index(c) for c in override]
+    for i in range(len(tds)):
+        got, want, plain = tds[i], jds[i], base[i]
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        for c in range(6):
+            assert np.array_equal(got[1][c], plain[1][c]) == (c not in swapped)
+    tds._override_lookup["yaw30pitch0"] = {}  # tokens missing there
+    for g, p in zip(tds[0], base[0]):
+        np.testing.assert_array_equal(g, p)
 
 
 def test_train_loader_shuffles_by_epoch_and_seed(fixture_root):
@@ -337,8 +377,7 @@ def test_empty_val_set_matches_jax(fixture_root, tmp_path, monkeypatch):
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
     from lss_carla_torch.training.loop import UNPORTED
     assert set(UNPORTED) == {"pretrained_trunk", "n_devices", "multihost",
-                             "cam_devices", "grid_devices", "dataset",
-                             "nuscenes_version"}
+                             "cam_devices", "grid_devices"}
     with pytest.raises(NotImplementedError, match="§A, --pretrained_trunk"):
         train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
     # with a ResNet trunk the JAX trainer's own check comes first
@@ -351,10 +390,16 @@ def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path):
                        ("grid_devices", 2)):
         with pytest.raises(NotImplementedError, match="§A, parallel modes"):
             train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
-    for key, value in (("dataset", "nuscenes"),
-                       ("nuscenes_version", "v1.0-trainval")):
-        with pytest.raises(NotImplementedError, match="§A, nuScenes"):
-            train(fixture_root, **TINY, **{key: value}, logdir=str(tmp_path))
+    # nuScenes is ported: the keywords reach its loader (which finds no
+    # tables in this SimBEV fixture), and multiclass labels raise as in JAX
+    for kw, where in (({}, "v1.0-mini"),
+                      ({"nuscenes_version": "v1.0-trainval"}, "v1.0-trainval")):
+        with pytest.raises(FileNotFoundError, match=f"tables not found: .*{where}"):
+            train(fixture_root, **TINY, dataset="nuscenes", **kw,
+                  logdir=str(tmp_path))
+    with pytest.raises(ValueError, match="supports only label_mode='vehicle_binary'"):
+        train(fixture_root, **TINY, dataset="nuscenes", label_mode="multiclass",
+              logdir=str(tmp_path))
     with pytest.raises(TypeError, match="unexpected"):
         train(fixture_root, **TINY, no_such_flag=1, logdir=str(tmp_path))
     # 6 train batches an epoch: a stack of 7 never fills

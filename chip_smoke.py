@@ -143,7 +143,25 @@ exits non-zero without the final result line:
     the fast recipe's ``train()`` loop (B0 bsz 8, bf16, 4 loader threads,
     100 steps, 8 steps an epoch), native and PIL in six turns, each run's
     mean step over steps 21-100, and each side's idle share against the
-    device busy time of a profile of the step alone.
+    device busy time of a profile of the step alone;
+21. the parallel modes (``lss_carla_torch/parallel``) at full width, B0
+    default: NCCL refuses two ranks on one device, so (a) gloo ranks share
+    cuda:0 and drive the parallel steps directly: 2 data-parallel ranks x
+    bsz 2 (``fused_dw``, f32, TF32 off, dropout 0) against the step
+    emulated in this process (each half's train-mode forward and backward
+    in turn, gradients and running stats averaged) to phase 9's limits,
+    then 3 steps with dropout on after which the replicas are bit-equal,
+    and the EMA's BN recalibration across the 2 ranks (``fused_dw``: the
+    depthwise kernel's sums averaged over the ranks) against one process's
+    over the whole batch, to phase 9's running-stats limit; the
+    camera-parallel predict at (data 1, cam 2) and (1, 3) against the
+    unsharded forward (``SERVE_TOL``), each rank's splat launches counted,
+    and one (1, 2) train step against its emulation (each camera half
+    lifted in train mode apart, the BEVs summed, one decode); (b) a
+    one-rank NCCL group: the all-reduce leaves f32 and bf16 tensors bit
+    for bit, inside the data-parallel step too, whose f32 result is held
+    to the single-device step's by phase 9's limits (bf16 a reading).
+    Gloo's step time is a reading only: it copies through the host.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -170,6 +188,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 import torch.nn.functional as F
 from PIL import Image
 
@@ -190,11 +210,16 @@ from lss_carla_torch.ops import mbconv_cuda, quant, splat_cuda
 from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
                                         same_pad)
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
+from lss_carla_torch.parallel import camera as pcamera
+from lss_carla_torch.parallel import mesh as pmesh
+from lss_carla_torch.parallel import step as pstep
 from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
 from lss_carla_torch.serving import _main as export_cli
 from lss_carla_torch.training import loop
+from lss_carla_torch.training.bn_recal import recalibrate_bn
 from lss_carla_torch.training.loop import train
+from lss_carla_torch.training.loss import bce_with_logits
 from lss_carla_torch.training.state import create_train_state
 from lss_carla_torch.training.step import make_train_step
 from lss_carla_torch.utils.backend import card_line
@@ -1001,11 +1026,23 @@ def card_cpu_steps(root, seed):
     return models, metrics, before, batch
 
 
-def grad_misses(card, cpu) -> dict:
-    """{parameter: (|g_card - g_cpu|, |g_cpu|)} (L2)."""
-    cards = dict(card.named_parameters())
-    return {k: ((cards[k].grad.cpu() - p.grad).norm().item(), p.grad.norm().item())
-            for k, p in cpu.named_parameters()}
+def step_result(model, metrics) -> dict:
+    """One train step's outcome on the CPU, for ``check_step``: loss,
+    gradients' global norm, each parameter's gradient and value after the
+    update, every BN's running stats."""
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "grads": {k: p.grad.detach().cpu()
+                      for k, p in model.named_parameters()},
+            "params": {k: p.detach().cpu() for k, p in model.named_parameters()},
+            "stats": {k: b.detach().cpu() for k, b in model.named_buffers()
+                      if k.endswith(("running_mean", "running_var"))}}
+
+
+def grad_misses(got, ref) -> dict:
+    """{parameter: (|g_got - g_ref|, |g_ref|)} (L2) of two step_results."""
+    return {k: ((got["grads"][k] - g).norm().item(), g.norm().item())
+            for k, g in ref["grads"].items()}
 
 
 def grad_limit(name: str) -> float:
@@ -1013,12 +1050,64 @@ def grad_limit(name: str) -> float:
     return GRAD_TOL if name.startswith(AFTER_LAST_BN) else BN_GRAD_TOL
 
 
+def check_step(got, ref, before) -> str:
+    """Hold one train step's step_result ``got`` against ``ref`` (the same
+    step elsewhere) to phase 9's limits, from the parameters ``before``
+    it; returns the readings."""
+    lc, lg = ref["loss"], got["loss"]
+    assert math.isfinite(lg) and abs(lg - lc) <= LOSS_TOL * max(1.0, abs(lc)), (lg, lc)
+    nc, ng = ref["grad_norm"], got["grad_norm"]
+    assert abs(ng - nc) <= GRAD_TOL * nc, (ng, nc)
+    lr, wd, eps = 1e-3, 1e-7, 1e-8
+    worst_p = 0.0
+    worst_g = {GRAD_TOL: (0.0, ""), BN_GRAD_TOL: (0.0, "")}
+    n_abs = n_bn_tol = flipped = 0
+    misses = grad_misses(got, ref)
+    for k, gc in ref["grads"].items():
+        gg, pg, pc = got["grads"][k], got["params"][k], ref["params"][k]
+        diff, norm = misses[k]
+        tol = grad_limit(k)
+        if diff <= tol * norm:
+            worst_g[tol] = max(worst_g[tol], (diff / norm if norm else 0.0, k))
+            n_bn_tol += int(diff > GRAD_TOL * norm)
+        else:
+            assert diff <= GRAD_ABS * nc, (k, diff, norm, tol)
+            n_abs += 1
+        p0 = before[k]
+        ec, eg = gc + wd * p0, gg + wd * p0
+        allowed = (lr * (eg - ec).abs() / (torch.minimum(ec.abs(), eg.abs()) + eps)
+                   + 1e-6 * p0.abs() + 1e-9)
+        used = ((pg - pc).abs() / allowed).max().item()
+        assert used <= 1.0, (k, used)
+        worst_p = max(worst_p, used)
+        flipped += int(((pg - p0) * (pc - p0) < 0).sum())
+    worst_s = 0.0
+    for k, bc in ref["stats"].items():
+        used = ((got["stats"][k] - bc).abs() / (STATS_TOL * bc.abs() + 1e-6)).max().item()
+        assert used <= 1.0, (k, used)
+        worst_s = max(worst_s, used)
+    n_par = len(ref["grads"])
+    return (f"loss {lg:.6f} vs {lc:.6f}, grad global norm {ng:.6f} vs "
+            f"{nc:.6f} (relative {abs(ng - nc) / nc:.2e}; clipped at 5.0); "
+            f"parameter gradients: {n_par - n_abs} of {n_par} within their "
+            f"relative L2 limit ({GRAD_TOL} after the last BN, worst "
+            f"{worst_g[GRAD_TOL][0]:.2e} at {worst_g[GRAD_TOL][1]}; "
+            f"{BN_GRAD_TOL} through BN, worst {worst_g[BN_GRAD_TOL][0]:.2e} at "
+            f"{worst_g[BN_GRAD_TOL][1]}, {n_bn_tol} above {GRAD_TOL}), {n_abs} "
+            f"zero up to rounding, within {GRAD_ABS} of the global norm; "
+            f"parameters after Adam within the stated bound (at most "
+            f"{worst_p:.2f} of it; {flipped} entries moved in opposite "
+            f"directions, as the bound allows near g = 0); "
+            f"{len(ref['stats'])} BN running stats within {STATS_TOL} "
+            f"relative + 1e-6 (at most {worst_s:.2f} of it)")
+
+
 def phase_card_vs_cpu(root, seed):
     """Phase 9."""
     models, metrics, before, _ = card_cpu_steps(root, seed)
-    cpu, card = models["cpu"], models["card"]
-    nc = float(metrics["cpu"]["grad_norm"])
-    misses = {name: grad_misses(models[name], cpu)
+    res = {name: step_result(models[name], metrics[name]) for name in models}
+    nc = res["cpu"]["grad_norm"]
+    misses = {name: grad_misses(res[name], res["cpu"])
               for name in ("card", "card, plain versions")}
     print("card vs CPU, parameters whose gradient misses GRAD_TOL relative "
           "and GRAD_ABS of the global norm (name: |g_card - g_cpu| / |g_cpu|): "
@@ -1026,60 +1115,9 @@ def phase_card_vs_cpu(root, seed):
               f"{k} {d / r:.2e}" for k, (d, r) in sorted(m.items())
               if d > GRAD_TOL * r and d > GRAD_ABS * nc) or "none")
               for name, m in misses.items()), flush=True)
-    lc, lg = float(metrics["cpu"]["loss"]), float(metrics["card"]["loss"])
-    assert math.isfinite(lg) and abs(lg - lc) <= LOSS_TOL * max(1.0, abs(lc)), (lg, lc)
-    ng = float(metrics["card"]["grad_norm"])
-    assert abs(ng - nc) <= GRAD_TOL * nc, (ng, nc)
-    lr, wd, eps = 1e-3, 1e-7, 1e-8
-    worst_p = 0.0
-    worst_g = {GRAD_TOL: (0.0, ""), BN_GRAD_TOL: (0.0, "")}
-    n_abs = n_bn_tol = flipped = 0
-    gpu_params = dict(card.named_parameters())
-    for k, pc in cpu.named_parameters():
-        pg = gpu_params[k].detach().cpu()
-        gc, gg = pc.grad, gpu_params[k].grad.cpu()
-        diff, ref = misses["card"][k]
-        tol = grad_limit(k)
-        if diff <= tol * ref:
-            worst_g[tol] = max(worst_g[tol], (diff / ref if ref else 0.0, k))
-            n_bn_tol += int(diff > GRAD_TOL * ref)
-        else:
-            assert diff <= GRAD_ABS * nc, (k, diff, ref, tol)
-            n_abs += 1
-        p0 = before[k]
-        ec, eg = gc + wd * p0, gg + wd * p0
-        allowed = (lr * (eg - ec).abs() / (torch.minimum(ec.abs(), eg.abs()) + eps)
-                   + 1e-6 * p0.abs() + 1e-9)
-        used = ((pg - pc.detach()).abs() / allowed).max().item()
-        assert used <= 1.0, (k, used)
-        worst_p = max(worst_p, used)
-        flipped += int(((pg - p0) * (pc.detach() - p0) < 0).sum())
-    gpu_buffers = dict(card.named_buffers())
-    worst_s, n_bn = 0.0, 0
-    for k, bc in cpu.named_buffers():
-        if not k.endswith(("running_mean", "running_var")):
-            continue
-        n_bn += 1
-        used = ((gpu_buffers[k].cpu() - bc).abs() / (STATS_TOL * bc.abs() + 1e-6)).max().item()
-        assert used <= 1.0, (k, used)
-        worst_s = max(worst_s, used)
-    n_par = len(gpu_params)
     print(f"card vs CPU, one B0 train step at bsz 2 (fused_dw: the kernel on "
           f"the card, the plain version on the CPU; dropout 0; f32, TF32 off): "
-          f"loss {lg:.6f} vs {lc:.6f}, grad global norm {ng:.6f} vs {nc:.6f} "
-          f"(relative {abs(ng - nc) / nc:.2e}; clipped at 5.0); parameter "
-          f"gradients: {n_par - n_abs} of {n_par} within their relative L2 "
-          f"limit ({GRAD_TOL} after the last BN, worst "
-          f"{worst_g[GRAD_TOL][0]:.2e} at {worst_g[GRAD_TOL][1]}; "
-          f"{BN_GRAD_TOL} through BN, worst {worst_g[BN_GRAD_TOL][0]:.2e} at "
-          f"{worst_g[BN_GRAD_TOL][1]}, {n_bn_tol} above {GRAD_TOL}), {n_abs} "
-          f"zero up to rounding, within {GRAD_ABS} of the global norm; "
-          f"parameters after Adam within the "
-          f"stated bound (at most {worst_p:.2f} of it; {flipped} entries moved "
-          f"in opposite directions, as the bound allows near g = 0); {n_bn} BN "
-          f"running "
-          f"stats within {STATS_TOL} relative + 1e-6 (at most {worst_s:.2f} of "
-          f"it)", flush=True)
+          f"{check_step(res['card'], res['cpu'], before)}", flush=True)
 
 
 def random_batch(rng, B, grid: int = 200, outC: int = 1):
@@ -2295,6 +2333,352 @@ def phase_decoder(tmp, root, seed, card):
           f"decodes {decodes}", flush=True)
 
 
+# --- phase 21: the parallel modes on one card -----------------------------
+#
+# NCCL refuses two ranks on one device and this machine has one card, so
+# the parallel steps run on gloo ranks that share cuda:0 (gloo all-reduces
+# CUDA tensors through host copies), held against an emulation of the
+# same step in this process on the same card; then NCCL itself, on a
+# one-rank group. Each rank sets its kernels' counters to 0 just before a
+# path and reads them just after.
+
+PARALLEL_STEPS = 3   # data-parallel steps with dropout on, then the digests
+
+
+def b0_for(seed: int, train: bool, fused_dw: bool = False,
+           compute_dtype: str = "float32"):
+    """The B0 default model of ``seed`` on the card: for training with
+    dropout and drop-connect 0, or for eval with randomised BN."""
+    gen = torch.Generator().manual_seed(seed)
+    model = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+                          fused_dw=fused_dw, compute_dtype=compute_dtype,
+                          device="cpu", generator=gen)
+    if train:
+        zero_dropout(model)
+    else:
+        randomize_bn(model, gen)
+    return model.cuda().train(train)
+
+
+def parallel_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of phase 21 on cuda:0 (spawned): its results to
+    ``tmp/rank<r>-of-<world>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    pmesh.init_process(rank, world, f"file://{tmp}/store{world}", dev,
+                       backend="gloo")
+    p = torch.load(f"{tmp}/payload.pt", weights_only=False)
+    seed = p["seed"]
+    batch = tuple(torch.as_tensor(a).to(dev) for a in p["batch"])
+    rows = tuple(x[:2] for x in batch)
+    out = {}
+
+    def launched(key, fn):
+        """Run ``fn`` as a counted path: out[key + "_launches"]."""
+        reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        out[key + "_launches"] = {"splat": splat_cuda.launches,
+                                  "dw_conv_stats": mbconv_cuda.launches}
+        return result
+
+    try:
+        if world == 2:
+            mesh = pmesh.make_mesh(2, dev)
+            model = b0_for(seed, True, fused_dw=True)
+            step = pstep.make_sharded_train_step(model, mesh, 2.13, seed=seed)
+            m = launched("dp", lambda: step(create_train_state(model),
+                                            pmesh.shard_batch(mesh, batch)))
+            out["dp"] = step_result(model, m)
+            pmesh.check_replicated(model, mesh)
+            # the EMA's BN recalibration across the ranks, as the trainer
+            # runs it: every BN takes the ranks' batches' moments, the fused
+            # bn1 from the depthwise kernel's sums averaged over the ranks
+            model = b0_for(seed, True, fused_dw=True)
+            launched("dp_recal", lambda: recalibrate_bn(
+                model, [pmesh.shard_batch(mesh, batch)],
+                lambda ts: pstep.all_reduce_packed([ts], [0.5], mesh.world)))
+            out["dp_recal"] = running_stats_of(model)
+            # PARALLEL_STEPS steps with dropout on: the masks differ by
+            # rank, the replicas must not
+            model = compile_model(GridConf(), DataAugConf(), outC=1,
+                                  variant="b0", fused_dw=True, device="cuda",
+                                  generator=torch.Generator().manual_seed(seed))
+            state = create_train_state(model)
+            step = pstep.make_sharded_train_step(model, mesh, 2.13, seed=seed)
+            ms = []
+
+            def steps():
+                for i in range(PARALLEL_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(state, pmesh.shard_batch(
+                        mesh, tuple(np.roll(a, i, 0) for a in p["batch"])))
+                    torch.cuda.synchronize()
+                    ms.append(1e3 * (time.perf_counter() - t0))
+            launched("dp_dropout", steps)
+            out["dp_digest"] = pmesh.check_replicated(model, mesh)
+            out["dp_ms"] = ms
+            mesh = pmesh.make_mesh_2d(1, 2, dev)
+        else:
+            mesh = pmesh.make_mesh_2d(1, 3, dev)
+        model = b0_for(seed, False)
+        predict = pcamera.make_camera_sharded_predict(model, mesh)
+        out["cam_logits"] = launched(
+            "cam", lambda: predict(None, rows[:6])).cpu()
+        if world == 2:
+            model = b0_for(seed, True)
+            step = pcamera.make_camera_sharded_train_step(model, mesh, 2.13,
+                                                          seed=seed)
+            m = launched("cam_train",
+                         lambda: step(create_train_state(model), rows))
+            out["cam_train"] = step_result(model, m)
+            pmesh.check_replicated(model, mesh)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{tmp}/rank{rank}-of-{world}.pt")
+
+
+def running_stats_of(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
+def run_parallel_ranks(tmp: str, world: int) -> list:
+    t0 = time.perf_counter()
+    mp.start_processes(parallel_rank, args=(world, tmp), nprocs=world,
+                       start_method="spawn")
+    outs = [torch.load(f"{tmp}/rank{r}-of-{world}.pt", weights_only=False)
+            for r in range(world)]
+    print(f"parallel: {world} gloo ranks on cuda:0 ran in "
+          f"{time.perf_counter() - t0:.1f} s (spawn, build, steps)", flush=True)
+    return outs
+
+
+def emulate_dp(seed: int, batch):
+    """The data-parallel step over 2 ranks in one process: each half's
+    train-mode forward and backward in turn from the same running stats,
+    the gradients and the stats averaged, one clip and Adam. Returns
+    (step_result, the parameters before)."""
+    model = b0_for(seed, True, fused_dw=True)
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    state = create_train_state(model)
+    stats = pstep.running_stats(model)
+    start = [t.clone() for t in stats]
+    ends, losses = [], []
+    for half in (slice(0, 2), slice(2, 4)):
+        torch._foreach_copy_(stats, start)
+        part = tuple(x[half] for x in batch)
+        loss = bce_with_logits(model(*part[:6]), part[6], 2.13)
+        loss.backward()
+        losses.append(loss.detach())
+        ends.append([t.clone() for t in stats])
+    with torch.no_grad():
+        torch._foreach_copy_(stats, [(a + b) * 0.5 for a, b in zip(*ends)])
+        grads = [q.grad for q in state.optimizer.params if q.grad is not None]
+        torch._foreach_mul_(grads, 0.5)
+    norm = state.optimizer.step(0)
+    return step_result(model, {"loss": (losses[0] + losses[1]) * 0.5,
+                               "grad_norm": norm}), before
+
+
+def emulate_camera(seed: int, rows):
+    """The (1, 2) camera step in one process: each camera half lifted in
+    train mode from the same running stats, the partial BEVs summed, one
+    decode; the camera encoder's stats averaged over the halves."""
+    model = b0_for(seed, True)
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    state = create_train_state(model)
+    stats = pstep.running_stats(model)
+    start = [t.clone() for t in stats]
+    ends, partial = [], []
+    for cams in (slice(0, 3), slice(3, 6)):
+        torch._foreach_copy_(stats, start)
+        partial.append(model.get_voxels(*(x[:, cams] for x in rows[:6])))
+        ends.append([t.clone() for t in stats])
+    with torch.no_grad():
+        torch._foreach_copy_(stats, [(a + b) * 0.5 for a, b in zip(*ends)])
+    loss = bce_with_logits(model.decode_bev(partial[0] + partial[1]), rows[6],
+                           2.13)
+    loss.backward()
+    norm = state.optimizer.step(0)
+    return step_result(model, {"loss": loss.detach(), "grad_norm": norm}), before
+
+
+class exact_reduction:
+    """Within ``with exact_reduction() as seen:``, the data-parallel step's
+    all-reduce is checked to leave every gradient, running stat and the
+    loss bit for bit (a one-rank mean); ``seen`` counts the calls."""
+
+    def __enter__(self):
+        self.saved, self.calls = pstep.reduce_train, []
+
+        def checked(state, metrics, group, n_mean, n_count=1):
+            tensors = ([q.grad for q in state.optimizer.params
+                        if q.grad is not None]
+                       + pstep.running_stats(state.model) + [metrics["loss"]])
+            copies = [t.clone() for t in tensors]
+            out = self.saved(state, metrics, group, n_mean, n_count)
+            assert all(torch.equal(a, b) for a, b in zip(copies, tensors)), \
+                "a one-rank all-reduce changed the step"
+            self.calls.append(n_mean)
+            return out
+        pstep.reduce_train = checked
+        return self.calls
+
+    def __exit__(self, *exc):
+        pstep.reduce_train = self.saved
+
+
+def phase_parallel_nccl(tmp: str, seed: int, rows) -> tuple:
+    """Phase 21 (b): NCCL on a one-rank group. Returns (launches, readings)."""
+    dev = torch.device("cuda", 0)
+    pmesh.init_process(0, 1, f"file://{tmp}/nccl-store", dev)
+    launches = {"splat": 0, "dw_conv_stats": 0}
+    notes = []
+    try:
+        assert dist.get_backend() == "nccl", dist.get_backend()
+        mesh = pmesh.make_mesh(1, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(1 << 20, device=dev).to(dtype)
+            y = x.clone()
+            dist.all_reduce(y)
+            assert torch.equal(x, y), f"a one-rank {dtype} all-reduce moved"
+        for compute in ("float32", "bfloat16"):
+            single = b0_for(seed, True, fused_dw=True, compute_dtype=compute)
+            before = {k: v.detach().cpu().clone()
+                      for k, v in single.named_parameters()}
+            want = step_result(single, make_train_step(single, 2.13, device=dev)(
+                create_train_state(single), rows))
+            model = b0_for(seed, True, fused_dw=True, compute_dtype=compute)
+            step = pstep.make_sharded_train_step(model, mesh, 2.13, seed=seed)
+            reset_launches()
+            with exact_reduction() as calls:
+                got = step_result(model, step(create_train_state(model), rows))
+            torch.cuda.synchronize()
+            launches["splat"] += splat_cuda.launches
+            launches["dw_conv_stats"] += mbconv_cuda.launches
+            assert calls == [1] and (splat_cuda.launches, mbconv_cuda.launches) \
+                == (1, DW_PER_FORWARD), (calls, splat_cuda.launches,
+                                         mbconv_cuda.launches)
+            if compute == "float32":
+                notes.append(f"f32 against the single-device step (phase 9's "
+                             f"limits): {check_step(got, want, before)}")
+            else:
+                rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+                gn = abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"]
+                assert math.isfinite(got["loss"]) and math.isfinite(got["grad_norm"])
+                notes.append(f"bf16: loss {got['loss']:.6f} vs {want['loss']:.6f} "
+                             f"(relative {rel:.2e}), grad norm relative {gn:.2e} "
+                             f"(a reading: only the splat's atomic order differs)")
+    finally:
+        dist.destroy_process_group()
+    return launches, "; ".join(notes)
+
+
+def phase_parallel(tmp: str, seed: int, card: str) -> dict:
+    """Phase 21. Returns the parallel paths' launches, by path and kernel."""
+    t_phase = time.perf_counter()
+    tmp = f"{tmp}/parallel"
+    os.makedirs(tmp)
+    rng = np.random.default_rng(seed + 21)
+    batch = (*inputs(rng, 4, uint8=True),
+             (rng.uniform(size=(4, 1, 200, 200)) < 0.02).astype(np.float32))
+    torch.save({"seed": seed, "batch": batch}, f"{tmp}/payload.pt")
+    two, three = run_parallel_ranks(tmp, 2), run_parallel_ranks(tmp, 3)
+    dev_batch = tuple(torch.as_tensor(a).cuda() for a in batch)
+    rows = tuple(x[:2] for x in dev_batch)
+
+    # (a) data parallel: one step against the emulation, replicas equal
+    for r, out in enumerate(two):
+        assert out["dp_launches"] == {"splat": 1, "dw_conv_stats": DW_PER_FORWARD}, \
+            (r, out["dp_launches"])
+        assert out["dp_dropout_launches"] == {
+            "splat": PARALLEL_STEPS,
+            "dw_conv_stats": DW_PER_FORWARD * PARALLEL_STEPS}, out
+    want, before = emulate_dp(seed, dev_batch)
+    dp_text = check_step(two[0]["dp"], want, before)
+    for k, v in two[0]["dp"]["params"].items():
+        assert torch.equal(v, two[1]["dp"]["params"][k]), k
+    assert two[0]["dp_digest"] == two[1]["dp_digest"]
+    # the recalibration across the ranks against one process's over the
+    # whole batch (the same kernels), to phase 9's running-stats limit
+    for r, out in enumerate(two):
+        assert out["dp_recal_launches"] == {
+            "splat": 1, "dw_conv_stats": DW_PER_FORWARD}, (r, out)
+    model = b0_for(seed, True, fused_dw=True)
+    recalibrate_bn(model, [dev_batch])
+    worst_recal = 0.0
+    for k, v in running_stats_of(model).items():
+        got = two[0]["dp_recal"][k]
+        used = ((got - v).abs() / (STATS_TOL * v.abs() + 1e-6)).max().item()
+        assert used <= 1.0, (k, used)
+        assert torch.equal(got, two[1]["dp_recal"][k]), k
+        worst_recal = max(worst_recal, used)
+    ms = two[0]["dp_ms"]
+    print(f"parallel, data: 2 gloo ranks x bsz 2 on cuda:0 (B0 full width, "
+          f"fused_dw, f32, TF32 off, dropout 0) against the step emulated in "
+          f"one process (each half's forward and backward, gradients and "
+          f"running stats averaged, one clip and Adam): {dp_text}; the ranks' "
+          f"parameters bit-equal; {PARALLEL_STEPS} steps with dropout on: "
+          f"replicas bit-equal (sha256 {two[0]['dp_digest'][:16]}); launches "
+          f"a rank a step: splat 1, dw_conv_stats {DW_PER_FORWARD}; the EMA's BN "
+          f"recalibration across the 2 ranks (fused_dw, one launch of each "
+          f"kernel a rank and forward) against one process's over the whole "
+          f"batch: {len(two[0]['dp_recal'])} running stats within {STATS_TOL} "
+          f"relative + 1e-6 (at most {worst_recal:.2f} of it), bit-equal on "
+          f"the ranks; gloo step "
+          f"ms on {card} (rank 0, host clock, a reading only: gloo copies "
+          f"through the host) {', '.join(f'{v:.1f}' for v in ms)}", flush=True)
+
+    # (a) camera parallel: the predict at (1, 2) and (1, 3), one (1, 2) step
+    model = b0_for(seed, False)
+    with torch.no_grad():
+        ref = model(*rows[:6]).cpu().numpy()
+    errs = []
+    for outs in (two, three):
+        for r, out in enumerate(outs):
+            assert out["cam_launches"] == {"splat": 1, "dw_conv_stats": 0}, \
+                (len(outs), r, out["cam_launches"])
+            err, scale = assert_close(f"camera predict (1, {len(outs)}) rank {r}",
+                                      out["cam_logits"].numpy(), ref, SERVE_TOL)
+            errs.append(err)
+    want, before = emulate_camera(seed, rows)
+    cam_text = check_step(two[0]["cam_train"], want, before)
+    for k, v in two[0]["cam_train"]["params"].items():
+        assert torch.equal(v, two[1]["cam_train"]["params"][k]), k
+    for out in two:
+        assert out["cam_train_launches"] == {"splat": 1, "dw_conv_stats": 0}, out
+    points = 2 * 3 * 41 * 8 * 22
+    print(f"parallel, camera: the sharded predict at (data 1, cam 2) and (1, "
+          f"3), bsz 2, eval, against the unsharded forward on the card: max "
+          f"|diff| {max(errs):.3e} (limit {SERVE_TOL} x {scale:.3f}); each "
+          f"rank launched the splat once, on its {points} points at (1, 2) "
+          f"(of {2 * points}); one (1, 2) train step (dropout 0, f32) against "
+          f"the emulation (each camera half lifted in train mode, BEVs summed, "
+          f"one decode): {cam_text}; the ranks' parameters bit-equal",
+          flush=True)
+
+    # (b) NCCL, one rank
+    nccl_launches, nccl_text = phase_parallel_nccl(tmp, seed, rows)
+    print(f"parallel, NCCL on a one-rank group (cuda:0): a one-rank "
+          f"all-reduce leaves f32 and bf16 tensors bit for bit, and inside the "
+          f"data-parallel step every gradient, running stat and the loss; "
+          f"{nccl_text}", flush=True)
+    launches = {
+        "data": {k: sum(o["dp_launches"][k] + o["dp_dropout_launches"][k]
+                        + o["dp_recal_launches"][k] for o in two)
+                 for k in ("splat", "dw_conv_stats")},
+        "camera": {k: sum(o["cam_launches"][k] for o in two + three)
+                   + sum(o["cam_train_launches"][k] for o in two)
+                   for k in ("splat", "dw_conv_stats")},
+        "nccl": nccl_launches}
+    print(f"parallel launches (all ranks): {launches}; phase 21 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
@@ -2459,7 +2843,11 @@ def main(argv=None) -> int:
         nusc_launches, nusc_rows = phase_nuscenes(tmp, args.seed, gen)
         at(20)
         phase_decoder(tmp, root, args.seed, card)
-        at(21)  # the end
+
+        # 21. the parallel modes: gloo ranks on the card, NCCL on one rank
+        at(21)
+        par_launches = phase_parallel(tmp, args.seed, card)
+        at(22)  # the end
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training + {stretch_launches['splat']} stretch (bf16) + "
@@ -2469,8 +2857,15 @@ def main(argv=None) -> int:
           f"dw_conv_stats {dw_launches} "
           f"training + {stretch_launches['dw_conv_stats']} stretch (bf16) + 0 "
           f"ResNet + 0 explore + 0 int8 (eval mode) + "
-          f"{nusc_launches['dw_conv_stats']} nuScenes", flush=True)
+          f"{nusc_launches['dw_conv_stats']} nuScenes; parallel paths (every "
+          f"rank): {par_launches}", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
+
+    def parallel_row(name):
+        return {path: n[name] for path, n in par_launches.items()}
+
+    def parallel_total(name):
+        return sum(parallel_row(name).values())
 
     def stretch_row(name):
         err, t = stretch[name]
@@ -2483,18 +2878,22 @@ def main(argv=None) -> int:
                 "replaces": "lss_carla_tpu/ops/splat_pallas.py:79",
                 "launches": (launches + splat_train + stretch_launches["splat"]
                              + resnet_launches + explore_launches
-                             + int8_launches + nusc_launches["splat"]),
+                             + int8_launches + nusc_launches["splat"]
+                             + parallel_total("splat")),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat"),
-                "nuscenes": nusc_rows["splat"]},
+                "nuscenes": nusc_rows["splat"],
+                "parallel_launches": parallel_row("splat")},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
                 "launches": (dw_launches + stretch_launches["dw_conv_stats"]
-                             + nusc_launches["dw_conv_stats"]),
+                             + nusc_launches["dw_conv_stats"]
+                             + parallel_total("dw_conv_stats")),
                 "max_abs_err": dw_err, **dw_times,
                 "stretch_bf16": stretch_row("dw_conv_stats"),
-                "nuscenes": nusc_rows["dw_conv_stats"]}]
+                "nuscenes": nusc_rows["dw_conv_stats"],
+                "parallel_launches": parallel_row("dw_conv_stats")}]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Host batch loader with threaded prefetch, and the copy to the device:
-counterpart of ``lss_carla_tpu/data/loader.py`` (single host).
+counterpart of ``lss_carla_tpu/data/loader.py``.
 
 The reference's torch DataLoader worker processes
 (``data_simbev.py:339-352``) become a thread pool, as in the JAX package:
@@ -36,14 +36,31 @@ class DataLoader:
     ``seed + e`` (``set_epoch`` pins e, for resume). ``pad_last`` pads the
     order to a multiple of ``batch_size`` with wrap-around duplicates and
     appends a (B,) f32 validity mask as an extra batch element: every batch
-    has one shape, and masked evaluation counts each sample once."""
+    has one shape, and masked evaluation counts each sample once.
+
+    ``shard_index``/``num_shards`` shard the input over data ranks, as the
+    JAX loader shards it over hosts: every shard iterates the same global
+    shuffle and takes an interleaved slice of it, ``batch_size`` rows a
+    batch (the per-shard batch). ``drop_last`` and ``pad_last`` work on the
+    ``batch_size * num_shards`` multiple, so every shard yields the same
+    number of batches an epoch; without either, a dataset that is not
+    such a multiple raises (a shard with a surplus batch would wait
+    forever in that step's collective)."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  drop_last: bool = False, num_workers: int = 4,
                  seed: int = 13, prefetch_batches: int = 2,
-                 pad_last: bool = False):
+                 pad_last: bool = False, shard_index: int = 0,
+                 num_shards: int = 1):
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last are mutually exclusive")
+        if (num_shards > 1 and not (drop_last or pad_last)
+                and len(dataset) % (batch_size * num_shards) != 0):
+            raise ValueError(
+                f"len(dataset)={len(dataset)} is not a multiple of "
+                f"batch_size*num_shards={batch_size * num_shards}; pass "
+                "drop_last or pad_last so every shard yields the same batch "
+                "count per epoch")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -51,6 +68,8 @@ class DataLoader:
         self.pad_last = pad_last
         self.num_workers = max(0, num_workers)
         self.prefetch_batches = max(1, prefetch_batches)
+        self.shard_index = shard_index
+        self.num_shards = max(1, num_shards)
         self._epoch = 0
         self._seed = seed
 
@@ -60,8 +79,9 @@ class DataLoader:
         self._epoch = int(epoch)
 
     def __len__(self):
-        n, b = len(self.dataset), self.batch_size
-        return n // b if self.drop_last else -(-n // b)
+        """Batches an epoch, the same on every shard."""
+        n, chunk = len(self.dataset), self.batch_size * self.num_shards
+        return n // chunk if self.drop_last else -(-n // chunk)
 
     def _batch_indices(self):
         n = len(self.dataset)
@@ -70,14 +90,16 @@ class DataLoader:
             g = torch.Generator().manual_seed(self._seed + self._epoch)
             order = torch.randperm(n, generator=g).numpy()
         valid = np.ones(n, bool)
-        b = self.batch_size
+        b, chunk = self.batch_size, self.batch_size * self.num_shards
         if self.drop_last:
-            keep = (n // b) * b
+            keep = (n // chunk) * chunk
             order, valid = order[:keep], valid[:keep]
-        elif self.pad_last and n % b:
-            padded = -(-n // b) * b
+        elif self.pad_last and n % chunk:
+            padded = -(-n // chunk) * chunk
             order = np.resize(order, padded)
             valid = np.concatenate([valid, np.zeros(padded - n, bool)])
+        order = order[self.shard_index::self.num_shards]
+        valid = valid[self.shard_index::self.num_shards]
         return [(order[s:s + b], valid[s:s + b]) for s in range(0, len(order), b)]
 
     def _assemble(self, samples, valid):
@@ -196,7 +218,8 @@ def prefetch_to_device(iterator, device, size: int = 2):
 
 def compile_data(version, dataroot, data_aug_conf, grid_conf, bsz: int,
                  nworkers: int, parser_name: str = "segmentationdata",
-                 dataset_kwargs: Optional[dict] = None, seed: int = 13):
+                 dataset_kwargs: Optional[dict] = None, seed: int = 13,
+                 shard_index: int = 0, num_shards: int = 1):
     """Reference-parity loader factory (``data_simbev.py:315-354``).
 
     Returns (trainloader, valloader); ``version`` is unused. The train
@@ -204,16 +227,24 @@ def compile_data(version, dataroot, data_aug_conf, grid_conf, bsz: int,
     loader pads its last batch with a validity mask (``pad_last``), so the
     whole val set is scored once. ``dataset_kwargs`` go to the dataset
     (orientation, extrinsic_noise, label_mode, label_classes,
-    device_normalize); the train dataset's generator is seeded ``seed``."""
+    device_normalize); the train dataset's generator is seeded ``seed``.
+
+    ``shard_index``/``num_shards``: this data rank's shard of every global
+    batch of ``bsz * num_shards`` rows (``bsz`` is the per-shard batch;
+    ``DataLoader``). Every shard draws the same shuffle, from ``seed``;
+    shard k's train dataset draws its augmentation from ``seed + k``."""
     from lss_carla_torch.data.simbev import SegmentationData, VizData
     parser = {"vizdata": VizData, "segmentationdata": SegmentationData}[parser_name]
     dataset_kwargs = dataset_kwargs or {}
     traindata = parser(dataroot, is_train=True, data_aug_conf=data_aug_conf,
-                       grid_conf=grid_conf, seed=seed, **dataset_kwargs)
+                       grid_conf=grid_conf, seed=seed + shard_index,
+                       **dataset_kwargs)
     valdata = parser(dataroot, is_train=False, data_aug_conf=data_aug_conf,
                      grid_conf=grid_conf, **dataset_kwargs)
+    shards = dict(shard_index=shard_index, num_shards=num_shards)
     trainloader = DataLoader(traindata, batch_size=bsz, shuffle=True,
-                             drop_last=True, num_workers=nworkers, seed=seed)
+                             drop_last=True, num_workers=nworkers, seed=seed,
+                             **shards)
     valloader = DataLoader(valdata, batch_size=bsz, shuffle=False,
-                           pad_last=True, num_workers=nworkers)
+                           pad_last=True, num_workers=nworkers, **shards)
     return trainloader, valloader

@@ -322,19 +322,23 @@ class NuScenesDataset:
 def compile_data_nuscenes(version, dataroot, data_aug_conf, grid_conf,
                           bsz: int, nworkers: int,
                           device_normalize: bool = False,
-                          use_native: bool = USE_NATIVE, seed: int = 13):
+                          use_native: bool = USE_NATIVE, seed: int = 13,
+                          shard_index: int = 0, num_shards: int = 1):
     """The nuScenes counterpart of ``loader.compile_data``: (trainloader,
     valloader). The train loader shuffles (from ``seed``, which also seeds
     the train dataset's draws) and drops the ragged tail; the val loader
-    pads its last batch with a validity mask (``pad_last``)."""
+    pads its last batch with a validity mask (``pad_last``).
+    ``shard_index``/``num_shards`` shard both as ``compile_data`` does."""
     from lss_carla_torch.data.loader import DataLoader
     kw = dict(version=version, device_normalize=device_normalize,
               use_native=use_native)
     train_ds = NuScenesDataset(dataroot, True, data_aug_conf, grid_conf,
-                               seed=seed, **kw)
+                               seed=seed + shard_index, **kw)
     val_ds = NuScenesDataset(dataroot, False, data_aug_conf, grid_conf, **kw)
+    shards = dict(shard_index=shard_index, num_shards=num_shards)
     trainloader = DataLoader(train_ds, batch_size=bsz, shuffle=True,
-                             drop_last=True, num_workers=nworkers, seed=seed)
+                             drop_last=True, num_workers=nworkers, seed=seed,
+                             **shards)
     valloader = DataLoader(val_ds, batch_size=bsz, shuffle=False,
-                           pad_last=True, num_workers=nworkers)
+                           pad_last=True, num_workers=nworkers, **shards)
     return trainloader, valloader

@@ -147,13 +147,15 @@ class MBConvBlock(nn.Module):
         if self.expand != 1:
             x = F.silu(self._bn0(self._expand_conv(x)))
         if self.fused_dw and self.training:
-            # the conv and its batch moments in one pass; BN from the moments.
-            # The kernel takes contiguous NCHW (a channels-last input, e.g.
-            # from images stacked as HWC views, is copied once here)
+            # the conv and its batch moments in one pass; BN from the moments
+            # (in a recalibration across ranks, ``bn.sync`` set, the global
+            # batch's). The kernel takes contiguous NCHW (a channels-last
+            # input, e.g. from images stacked as HWC views, is copied once
+            # here)
             bn = self._bn1
             x, mean, var = fused_dw_bn_swish(
                 x.contiguous(), self._depthwise_conv.weight, bn.weight,
-                bn.bias, self.stride, bn.eps)
+                bn.bias, self.stride, bn.eps, bn.sync)
             bn.update_running_stats(mean, var)
         else:
             x = self._depthwise_conv(same_pad(x, self.kernel, self.stride))

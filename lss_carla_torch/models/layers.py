@@ -49,19 +49,42 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``update_running_stats``, the fused MBConv path's too. While
     ``moments`` is a list (``training/bn_recal.py`` sets it), that method
     appends each batch's (mean, var) there and leaves the running stats
-    alone."""
+    alone. While ``sync`` is set too (a recalibration across ranks), a
+    train-mode forward normalises with the moments of the ranks' batches
+    together, as sync-BN does: ``sync(tensors)`` replaces each tensor, in
+    place, by its mean over the ranks. The fused MBConv path hands its
+    ``bn1.sync`` to ``ops/mbconv.py::fused_dw_bn_swish``, which averages
+    the kernel's sums the same way."""
 
     moments = None
+    sync = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync is not None:
+            return self._synced(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
                                        correction=0)
         self.update_running_stats(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True,
                             0.0, self.eps)
+
+    @torch.no_grad()
+    def _synced(self, x):
+        """Train-mode BN over the ranks' batches together (equal batches):
+        the mean of their means, then of their mean squared deviations
+        from it (two passes, no cancellation)."""
+        xf = x.to(torch.float32)
+        mean = xf.mean((0, 2, 3))
+        self.sync([mean])
+        var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+        self.sync([var])
+        self.update_running_stats(mean, var)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = xf * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
+        return y.to(x.dtype)
 
     @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):

@@ -106,11 +106,17 @@ def bn_swish(y, mean, var, gamma, beta, eps: float):
     return F.silu(z).to(y.dtype)
 
 
-def fused_dw_bn_swish(x, w, gamma, beta, stride: int = 1, eps: float = 1e-3):
+def fused_dw_bn_swish(x, w, gamma, beta, stride: int = 1, eps: float = 1e-3,
+                      sync=None):
     """swish(BN_train(dwconv(x))) with the conv and its moments in one
     pass. Returns (out, mean, var): mean and the biased var, so a caller
-    can update BN running stats as flax does."""
+    can update BN running stats as flax does. ``sync`` (a callable that
+    replaces a list of tensors, in place, by their means over the ranks,
+    whose batches are equal) makes the moments the ranks' batches'
+    together, as sync-BN does."""
     y, s, ss = dw_conv_stats(x, w, stride)
+    if sync is not None:
+        sync([s, ss])
     mean, var = batch_moments(s, ss, y.shape[0] * y.shape[2] * y.shape[3])
     return bn_swish(y, mean, var, gamma, beta, eps), mean, var
 

@@ -22,8 +22,21 @@ with BN recalibration, two microbatches a step):
         --fused_dw --lr_schedule cosine --warmup_steps 500 \\
         --ema_decay 0.999 --accum_steps 2 --val_step 2000 --save_step 2000
 
+Data parallel over the GPUs of one host (the ranks are this process's
+children, one a GPU; ``--bsz`` is the global batch), camera parallel on top
+(``--cam_devices``: the cameras of a data row split over that many ranks),
+or one rank of a multi-host run under ``torchrun`` (``--multihost``):
+
+    python -m lss_carla_torch.train --dataroot /data/SimBEV --n_devices 8 --bsz 32
+    python -m lss_carla_torch.train --dataroot /data/SimBEV --n_devices 4 \
+        --cam_devices 2 --bsz 4
+    torchrun --nnodes 2 --nproc_per_node 8 --rdzv_backend c10d \
+        --rdzv_endpoint host0:29400 -m lss_carla_torch.train \
+        --dataroot /data/SimBEV --multihost --bsz 64
+
 The JAX CLI's other flags are accepted only to say where they wait in
-``ROADMAP.md``: passing one exits with that message.
+``ROADMAP.md``: passing one exits with that message (``--grid_devices``
+above 1 among them).
 """
 
 from __future__ import annotations
@@ -33,8 +46,10 @@ import sys
 
 from lss_carla_torch.training.loop import UNPORTED, check_pretrained_trunk, train
 
-# train_simbev.py flags that wait in ROADMAP.md
-_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()}
+# train_simbev.py flags that wait in ROADMAP.md and have no flag of their
+# own here (--grid_devices has one, and only its "off" value 1 passes)
+_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()
+                   if k != "grid_devices"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -125,6 +140,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler trace of the run there")
     p.add_argument("--iou_log_step", type=int, default=100)
     p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="ranks, one process a GPU (default 1; with "
+                        "--multihost the launcher's world size)")
+    p.add_argument("--cam_devices", type=int, default=1,
+                   help="camera-parallel ranks a data row: the cameras "
+                        "split over them; n_devices / cam_devices data ranks")
+    p.add_argument("--grid_devices", type=int, default=1,
+                   help="BEV-grid parallel ranks (not ported yet: only 1)")
+    p.add_argument("--multihost", action="store_true",
+                   help="one rank of a multi-host run: join the process "
+                        "group of the launcher's environment (torchrun); "
+                        "--bsz is the global batch")
     p.add_argument("--supervise", type=int, default=0,
                    help="restart the run up to N times after a watchdog "
                         "exit (code 42), resuming from <logdir>/ckpts once "
@@ -163,6 +190,8 @@ def train_kwargs(args) -> dict:
         wandb_name=args.wandb_name, wandb_entity=args.wandb_entity,
         profile_dir=args.profile_dir, watchdog_secs=args.watchdog_secs,
         debug_stall_at=args.debug_stall_at, async_save=args.async_save,
+        n_devices=args.n_devices, cam_devices=args.cam_devices,
+        grid_devices=args.grid_devices, multihost=args.multihost,
         device=device)
 
 
@@ -173,9 +202,11 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_pretrained_trunk(args.pretrained_trunk, args.variant)
     given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
+    if args.grid_devices != 1:
+        given.append("grid_devices")
     if given:
         parser.error("not ported to lss_carla_torch yet: " + "; ".join(
-            f"--{k} (ROADMAP.md {_UNPORTED_FLAGS[k]})" for k in given))
+            f"--{k} (ROADMAP.md {UNPORTED[k][1]})" for k in given))
     if args.supervise > 0:
         from lss_carla_torch.utils.supervise import run_supervised
         return run_supervised(args.supervise, args.logdir,

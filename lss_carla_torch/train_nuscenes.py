@@ -10,8 +10,12 @@ nuscenes_aug``): 900 x 1600 sources, resize 0.193-0.225, bottom crop
     python -m lss_carla_torch.train_nuscenes --dataroot /data/nuscenes
     python -m lss_carla_torch.train_nuscenes --dataroot /data/SimBEV --simbev_data
 
-``--n_devices`` and ``--cam_devices`` parse and raise naming their
-``ROADMAP.md`` item, as ``train()`` does.
+``--n_devices`` runs that many data-parallel ranks (one process a GPU,
+``--bsz`` the global batch) and ``--cam_devices`` splits each data row's
+cameras over that many of them (``training/loop.py``). The original
+config trains on 5 of the 6 cameras, a subset each sample draws, so
+``train()`` refuses ``--cam_devices`` > 1 here (each cam rank would draw
+its own subset).
 """
 
 from __future__ import annotations

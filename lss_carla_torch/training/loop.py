@@ -1,5 +1,5 @@
-"""The single-device training loop: counterpart of
-``lss_carla_tpu/training/loop.py`` (reference ``train_simbev.py:23-460``).
+"""The training loop: counterpart of ``lss_carla_tpu/training/loop.py``
+(reference ``train_simbev.py:23-460``).
 
 SimBEV or nuScenes loader (``dataset``; -> ``stack_microbatches`` with
 ``accum_steps`` > 1) -> ``prefetch_to_device`` (pinned host batches,
@@ -25,6 +25,21 @@ trace of the run (``profile_dir``), the stall watchdog (``watchdog_secs``,
 ``training/watchdog.py``) and background periodic checkpoints
 (``async_save``).
 
+Parallel modes (``n_devices`` > 1; ``parallel/``): one process a device.
+On one host ``train`` starts its ranks itself (``torch.multiprocessing``,
+spawn; rank r on ``cuda:r``, or gloo ranks on the CPU with
+``device="cpu"``) and returns rank 0's result; with ``multihost`` it
+spawns nothing and joins the launcher's group (``torchrun``'s ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``), the counterpart of
+``jax.distributed.initialize()``. ``bsz`` is the global batch: each data
+rank loads its shard (``bsz / n_data`` rows); with ``cam_devices`` > 1 the
+cam ranks of a data row load the same rows and each lifts its own
+cameras. Rank 0 logs (the others a ``NullLogger``), profiles and writes
+the checkpoints, with a barrier after each save; every rank loads the
+same file on resume. A signal on any rank stops every rank at the same
+step: each step ends with a MAX all-reduce of the ranks' signal flags on
+a host group. Each rank has its own watchdog.
+
 Flags of the JAX trainer that the port does not have yet raise
 ``NotImplementedError`` naming their ``ROADMAP.md`` item (``UNPORTED``);
 none is ignored.
@@ -34,36 +49,44 @@ from __future__ import annotations
 
 import collections
 import os
+import shutil
 import signal
+import sys
+import tempfile
 import time
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.data.decode import USE_NATIVE
+from lss_carla_torch.data.simbev import CAMERA_ORDER
 from lss_carla_torch.data.loader import (compile_data, prefetch_to_device,
                                          stack_microbatches)
 from lss_carla_torch.models.lss import compile_model
+from lss_carla_torch.ops import mbconv_cuda, splat_cuda
+from lss_carla_torch.parallel import camera as pcamera
+from lss_carla_torch.parallel import mesh as pmesh
+from lss_carla_torch.parallel import step as pstep
 from lss_carla_torch.training.bn_recal import recalibrate_bn
 from lss_carla_torch.training.state import (create_train_state,
                                             restore_train_state)
 from lss_carla_torch.training.step import (make_eval_step, make_predict_step,
                                            make_train_step, to_device)
-from lss_carla_torch.training.watchdog import StallWatchdog
+from lss_carla_torch.training.watchdog import WATCHDOG_EXIT, StallWatchdog
 from lss_carla_torch.utils.backend import resolve_device
-from lss_carla_torch.utils.checkpoint import CheckpointManager, load_checkpoint
-from lss_carla_torch.utils.logging import MetricLogger
+from lss_carla_torch.utils.checkpoint import (CheckpointManager, load_checkpoint,
+                                              read_best_val_iou)
+from lss_carla_torch.utils.logging import MetricLogger, NullLogger
 
 # keyword of the JAX trainer -> (its values that mean "off", the ROADMAP.md
 # item by its title: the items' numbers change as the queue moves)
 UNPORTED = {
     "pretrained_trunk": ((None,), "§A, --pretrained_trunk"),
-    "n_devices": ((None, 1), "§A, parallel modes"),
-    "multihost": ((False,), "§A, parallel modes"),
-    "cam_devices": ((1,), "§A, parallel modes"),
-    "grid_devices": ((1,), "§A, parallel modes"),
+    "grid_devices": ((1,), "§A, BEV-grid parallel mode"),
 }
 
 
@@ -87,6 +110,124 @@ def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
         raise ValueError("--pretrained_trunk imports efficientnet_pytorch "
                          "weights; no import source exists for the "
                          "resnet trunk variants")
+
+
+def parallel_plan(n_devices, multihost: bool, cam_devices: int,
+                  accum_steps: int, fused_dw: bool, ncams: int, bsz: int,
+                  dev: torch.device):
+    """The JAX trainer's checks of the parallel keywords, in meaning
+    (``lss_carla_tpu/training/loop.py:213-262``): returns (ranks, data
+    ranks, cam ranks). ``n_devices`` None means 1, or the launcher's world
+    size with ``multihost``; it is clamped to the devices there are (GPUs
+    on CUDA, CPU cores on the CPU, the world size under a launcher)."""
+    cam_devices = max(1, int(cam_devices))
+    if multihost:
+        count = (dist.get_world_size() if dist.is_initialized()
+                 else pmesh.launcher_env()["world_size"])
+    elif dist.is_initialized():
+        count = dist.get_world_size()
+    elif dev.type == "cuda":
+        count = torch.cuda.device_count()
+    else:
+        count = os.cpu_count() or 1
+    n = count if (n_devices is None and multihost) else (n_devices or 1)
+    n = min(int(n), count)
+    if accum_steps > 1 and cam_devices > 1:
+        raise ValueError("accum_steps > 1 is not supported together with "
+                         "cam_devices > 1 (accumulate on the data axis or "
+                         "shard the cameras, not both)")
+    if fused_dw and cam_devices > 1:
+        raise ValueError("--fused_dw composes with data parallelism only; "
+                         "drop it for cam_devices > 1")
+    if cam_devices > 1:
+        if n % cam_devices:
+            raise ValueError(f"n_devices={n} must be divisible by "
+                             f"cam_devices={cam_devices}")
+        if ncams % cam_devices:
+            raise ValueError(f"ncams={ncams} must be divisible by "
+                             f"cam_devices={cam_devices} (cameras shard "
+                             "evenly over the cam axis)")
+        if ncams < len(CAMERA_ORDER):
+            raise ValueError(
+                f"cam_devices > 1 trains on every camera (ncams="
+                f"{len(CAMERA_ORDER)}): each cam rank would draw its own "
+                f"subset of {ncams}")
+    n_data = n // cam_devices
+    if n > 1 and bsz % n_data:
+        raise ValueError(f"bsz={bsz} must be divisible by the data-rank count "
+                         f"{n_data} (n_devices / cam_devices)")
+    if multihost and n <= 1:
+        raise ValueError("--multihost needs more than one rank "
+                         "(n_devices > 1)")
+    return n, n_data, cam_devices
+
+
+def rank_device(dev: torch.device, local: int) -> torch.device:
+    """A rank's device: ``cuda:<local rank>`` on the GPU, else the CPU."""
+    return torch.device("cuda", local) if dev.type == "cuda" else dev
+
+
+def _rank_main(rank: int, world: int, tmp: str, kwargs: dict) -> None:
+    """One spawned rank of ``train``: joins the group over a FileStore in
+    ``tmp``, trains, and (rank 0) writes its result there. Only rank 0
+    prints."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    dev = rank_device(torch.device(kwargs["device"]), rank)
+    if dev.type == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    pmesh.init_process(rank, world, f"file://{tmp}/store", dev)
+    try:
+        out = train(**kwargs)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        state = out.pop("state")
+        out["model_state_dict"] = {k: v.detach().cpu() for k, v in
+                                   state.model.state_dict().items()}
+        if state.ema_model is not None:
+            out["ema_state_dict"] = {k: v.detach().cpu() for k, v in
+                                     state.ema_model.state_dict().items()}
+        torch.save(out, os.path.join(tmp, "result.pt"))
+
+
+def _spawn(n: int, kwargs: dict) -> dict:
+    """Run ``train(**kwargs)`` on ``n`` spawned ranks; return rank 0's
+    result. SIGTERM and SIGINT are passed on to the ranks (which agree on
+    a step and checkpoint); a rank's watchdog exit ends this process with
+    the same code, as a one-process run's does."""
+    tmp = tempfile.mkdtemp(prefix="lss_ranks_")
+    try:
+        ctx = mp.start_processes(_rank_main, args=(n, tmp, kwargs), nprocs=n,
+                                 join=False, start_method="spawn")
+
+        def forward(signum, frame):
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    os.kill(proc.pid, signum)
+
+        prev = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev[sig] = signal.signal(sig, forward)
+        except ValueError:  # not the main thread
+            pass
+        try:
+            while not ctx.join():
+                pass
+        except mp.ProcessExitedException as e:
+            if e.exit_code == WATCHDOG_EXIT:
+                os._exit(WATCHDOG_EXIT)
+            raise
+        finally:
+            for sig, h in prev.items():
+                signal.signal(sig, h)
+        return {**torch.load(os.path.join(tmp, "result.pt"),
+                             weights_only=True), "state": None}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def decode_stats(loader) -> dict:
@@ -226,12 +367,22 @@ def train(
     async_save: bool = False,         # periodic checkpoints written in a
                                       # background thread; best, final and
                                       # preemption saves stay synchronous
+    n_devices: Optional[int] = None,  # ranks, one process a device (None:
+                                      # 1, or the launcher's world size
+                                      # with multihost)
+    multihost: bool = False,          # join a launcher's process group
+                                      # (torchrun's environment) instead of
+                                      # spawning the ranks
+    cam_devices: int = 1,             # camera-parallel ranks a data row:
+                                      # n_devices / cam_devices data ranks
     device="cuda",
     **unported,
 ):
-    """Train LSS on SimBEV or nuScenes (``dataset``) on one device; the JAX
+    """Train LSS on SimBEV or nuScenes (``dataset``) on one device or, with
+    ``n_devices`` > 1, on several ranks (the module docstring); the JAX
     trainer's keywords, minus those in ``UNPORTED`` (which raise unless
-    off), plus ``use_native``. nuScenes takes only
+    off), plus ``use_native``. With several ranks on a GPU, rank r runs on
+    ``cuda:<local rank>`` whatever index ``device`` names. nuScenes takes only
     ``label_mode="vehicle_binary"`` and no ``extrinsic_noise``, as in JAX. ``device`` is "cuda"
     unless the caller asks for the CPU; no GPU raises. Weights are drawn
     from a generator seeded ``seed``, and ``torch.manual_seed(seed)`` seeds
@@ -241,7 +392,12 @@ def train(
 
     Returns {"counter", "start_counter", "best_val_iou" (None without a
     validation), "state", "decode_stats" ({"train": ..., "val": ...}: the
-    datasets' ``NativeDecoder.stats``, decodes by path and reason)}."""
+    datasets' ``NativeDecoder.stats``, decodes by path and reason)}. A call
+    that spawned its ranks returns rank 0's, with "state" None and the
+    trained weights as "model_state_dict" (and "ema_state_dict" with
+    EMA), on the CPU."""
+    kwargs = {k: v for k, v in locals().items() if k != "unported"}
+    kwargs.update(unported)
     check_pretrained_trunk(unported.get("pretrained_trunk"), variant)
     check_unported(**unported)
     if dataset not in ("simbev", "nuscenes"):
@@ -257,7 +413,33 @@ def train(
             raise ValueError("extrinsic_noise is not implemented for the "
                              "nuScenes loader")
     dev = resolve_device(device)
-    torch.manual_seed(seed)
+    n_ranks, n_data, cam_devices = parallel_plan(
+        n_devices, multihost, cam_devices, accum_steps, fused_dw, ncams, bsz,
+        dev)
+    mesh = None
+    if n_ranks > 1:
+        if not dist.is_initialized():
+            if not multihost:
+                return _spawn(n_ranks, kwargs)
+            env = pmesh.launcher_env()
+            pmesh.init_process(env["rank"], env["world_size"], "env://",
+                               rank_device(dev, env["local_rank"]))
+        if dist.get_world_size() != n_ranks:
+            raise ValueError(f"n_devices={n_ranks}, the process group has "
+                             f"{dist.get_world_size()} ranks")
+        dev = rank_device(dev, pmesh.local_rank())
+        mesh = pmesh.make_mesh_2d(n_data, cam_devices, dev)
+        if dev.type == "cuda":
+            # one nvcc a kernel: rank 0 builds, the others then load it
+            if mesh.is_primary:
+                splat_cuda.LIB.build()
+                if fused_dw:
+                    mbconv_cuda.LIB.build()
+            mesh.barrier()
+    is_primary = mesh is None or mesh.is_primary
+    # dropout and drop-connect outside the parallel steps' own streams
+    # (the EMA's recalibration forwards) differ between ranks
+    torch.manual_seed(seed + (0 if mesh is None else mesh.rank))
     grid_conf = GridConf(xbound=tuple(xbound), ybound=tuple(ybound),
                          zbound=tuple(zbound), dbound=tuple(dbound))
     data_aug_conf = DataAugConf(
@@ -281,22 +463,30 @@ def train(
     print(f"  dataroot: {dataroot} ({dataset})")
     print(f"  logdir: {logdir}")
     print(f"  device: {dev}  batch size: {bsz} x {accum_steps} microbatches")
+    if mesh is not None:
+        print(f"  ranks: {mesh.size} = {mesh.n_data} data x {mesh.n_cam} cam "
+              f"({dist.get_backend()}); {bsz // mesh.n_data} rows a data rank"
+              + ("; multihost" if multihost else ""))
     print(f"  lr: {lr}  epochs: {nepochs}  cams: {ncams}")
     print(f"  image: {H}x{W} -> {tuple(final_dim)}")
     print(f"  splat: {splat_method}  trunk: {trunk_name}  fused_dw: "
           f"{fused_dw}  compute: {compute_dtype}")
     print("=" * 80)
 
+    # each data rank loads its shard of every global batch; the cam ranks
+    # of a data row load the same rows
+    shards = {"shard_index": 0 if mesh is None else mesh.data_index,
+              "num_shards": n_data, "bsz": bsz // n_data}
     if dataset == "nuscenes":
         from lss_carla_torch.data.nuscenes import compile_data_nuscenes
         trainloader, valloader = compile_data_nuscenes(
-            nuscenes_version, dataroot, data_aug_conf, grid_conf, bsz=bsz,
+            nuscenes_version, dataroot, data_aug_conf, grid_conf,
             nworkers=nworkers, device_normalize=device_normalize,
-            use_native=use_native, seed=seed)
+            use_native=use_native, seed=seed, **shards)
     else:
         trainloader, valloader = compile_data(
-            "unused", dataroot, data_aug_conf, grid_conf, bsz=bsz,
-            nworkers=nworkers, seed=seed,
+            "unused", dataroot, data_aug_conf, grid_conf,
+            nworkers=nworkers, seed=seed, **shards,
             dataset_kwargs={"label_mode": label_mode,
                             "label_classes": tuple(label_classes),
                             "extrinsic_noise": extrinsic_noise,
@@ -304,7 +494,8 @@ def train(
                             "use_native": use_native})
     print(f"Train batches: {len(trainloader)}  Val batches: {len(valloader)}")
     if len(trainloader) == 0:
-        raise ValueError(f"fewer train samples than one batch of {bsz}")
+        raise ValueError(f"fewer train samples than one global batch of "
+                         f"{bsz}")
     if accum_steps > len(trainloader):
         # stack_microbatches drops the ragged tail: no step would run
         raise ValueError(f"accum_steps={accum_steps} exceeds the "
@@ -335,29 +526,62 @@ def train(
     log_lr = lr_schedule != "constant" or warmup_steps
     print(f"Number of trainable parameters: "
           f"{sum(p.numel() for p in model.parameters()):,}")
-    train_fn = make_train_step(model, pos_weight, accum_steps=accum_steps,
-                               ema_decay=ema_decay, device=dev)
-    eval_fn = make_eval_step(model, pos_weight, device=dev)
-    ema_eval_fn = (make_eval_step(state.ema_model, pos_weight, device=dev)
-                   if ema_decay else None)
+    if mesh is None:
+        train_fn = make_train_step(model, pos_weight, accum_steps=accum_steps,
+                                   ema_decay=ema_decay, device=dev)
+
+        def eval_step(m):
+            return make_eval_step(m, pos_weight, device=dev)
+
+        def predict_step(m):
+            return make_predict_step(m, device=dev)
+    elif mesh.n_cam > 1:
+        train_fn = pcamera.make_camera_sharded_train_step(
+            model, mesh, pos_weight, ema_decay=ema_decay, seed=seed)
+
+        def eval_step(m):
+            return pcamera.make_camera_sharded_eval_step(m, mesh, pos_weight)
+
+        def predict_step(m):
+            return pcamera.make_camera_sharded_predict(m, mesh)
+    else:
+        train_fn = pstep.make_sharded_train_step(
+            model, mesh, pos_weight, ema_decay=ema_decay,
+            accum_steps=accum_steps, seed=seed)
+
+        def eval_step(m):
+            return pstep.make_sharded_eval_step(m, mesh, pos_weight)
+
+        def predict_step(m):  # rank 0's rows only: no collective
+            return make_predict_step(m, device=dev)
+    eval_fn = eval_step(model)
+    ema_eval_fn = eval_step(state.ema_model) if ema_decay else None
     # the last ema_bn_recal training batches (microbatch 0 of a stack), on
-    # the device, for the EMA's BN recalibration before each validation
+    # the device, for the EMA's BN recalibration before each validation;
+    # with several ranks, each batch's moments are the global batch's
     recal_window = (collections.deque(maxlen=ema_bn_recal)
                     if ema_decay and ema_bn_recal > 0 else None)
+    mean_over_ranks = None if mesh is None else (
+        lambda ts: pstep.all_reduce_packed([ts], [1.0 / mesh.size], mesh.world))
     # figures: the trained model for the train figure, the validated one
     # (the EMA with ema_decay) for the val figure, on val batch 0 fetched
-    # once
+    # once. Rank 0 renders them; the camera-parallel prediction is a
+    # collective, which every rank runs on its own rows
+    if multihost and viz_step:
+        print("multihost: figures off (as in the JAX trainer)")
+        viz_step = 0
     predict_fn = val_predict_fn = viz_val_batch = None
-    if viz_step:
-        predict_fn = make_predict_step(model, device=dev)
-        val_predict_fn = (make_predict_step(state.ema_model, device=dev)
-                          if ema_decay else predict_fn)
+    if viz_step and (is_primary or mesh.n_cam > 1):
+        predict_fn = predict_step(model)
+        val_predict_fn = (predict_step(state.ema_model) if ema_decay
+                          else predict_fn)
         viz_val_batch = next(iter(valloader), None)
     extent = (grid_conf.ybound[0], grid_conf.ybound[1],
               grid_conf.xbound[0], grid_conf.xbound[1])
 
-    ckpt = CheckpointManager(os.path.join(logdir, "ckpts"),
-                             async_save=async_save)
+    ckpt_dir = os.path.join(logdir, "ckpts")
+    ckpt = (CheckpointManager(ckpt_dir, async_save=async_save) if is_primary
+            else None)
     # None until a validation: the first one always writes model_best.pt,
     # even at IoU 0 (the JAX trainer starts at 0.0 and writes none then)
     counter, start_epoch, best_val_iou = 0, 0, None
@@ -371,23 +595,36 @@ def train(
         resume_dir = resume if os.path.isdir(resume) else os.path.dirname(
             os.path.abspath(resume))
         candidates = [b for b in (restored.get("val_iou"),
-                                  CheckpointManager(resume_dir).best_val_iou(),
-                                  ckpt.best_val_iou()) if b is not None]
+                                  read_best_val_iou(resume_dir),
+                                  read_best_val_iou(ckpt_dir))
+                      if b is not None]
         best_val_iou = max(candidates, default=None)
         print(f"Resumed from step {counter}, epoch {start_epoch} "
               f"(best val IoU so far {best_val_iou})")
     start_counter = counter
+    if mesh is not None:
+        # every rank loaded the same weights (or made them from one seed):
+        # rank 0's are broadcast and the replicas checked bit-equal
+        for m in (model, state.ema_model):
+            if m is not None:
+                pmesh.replicate(m, mesh)
 
-    def save(save_fn, *args, **kw):
-        save_fn(counter, model, state.optimizer, *args,
-                ema_model=state.ema_model, **kw)
+    def save(method, *args, **kw):
+        """Rank 0 writes ``ckpt.<method>``; every rank then waits for it."""
+        if ckpt is not None:
+            getattr(ckpt, method)(counter, model, state.optimizer, *args,
+                                  ema_model=state.ema_model, **kw)
+        if mesh is not None:
+            mesh.barrier()
 
-    preempted = False
+    # the handler sets ``signalled``; ``preempted`` is the ranks' agreement
+    # on it, read at the same step on every rank
+    signalled = preempted = False
 
     def _on_signal(signum, frame):
-        nonlocal preempted
+        nonlocal signalled
         print(f"signal {signum} received -> checkpoint and exit")
-        preempted = True
+        signalled = True
 
     prev_handlers = {}
     try:
@@ -396,11 +633,14 @@ def train(
     except ValueError:  # not the main thread (e.g. under a test runner)
         prev_handlers = {}
 
-    logger = MetricLogger(logdir, use_wandb=use_wandb, wandb_kwargs={
-        "project": wandb_project, "name": wandb_name, "entity": wandb_entity,
-        "config": {"bsz": bsz, "lr": lr, "grid_conf": grid_conf.to_dict(),
-                   "data_aug_conf": data_aug_conf.to_dict(),
-                   "variant": variant, "compute_dtype": compute_dtype}})
+    logger = NullLogger() if not is_primary else MetricLogger(
+        logdir, use_wandb=use_wandb, wandb_kwargs={
+            "project": wandb_project, "name": wandb_name,
+            "entity": wandb_entity,
+            "config": {"bsz": bsz, "lr": lr, "grid_conf": grid_conf.to_dict(),
+                       "data_aug_conf": data_aug_conf.to_dict(),
+                       "variant": variant, "compute_dtype": compute_dtype,
+                       "n_devices": n_ranks, "cam_devices": cam_devices}})
     watchdog = None
     if watchdog_secs:
         watchdog = StallWatchdog(watchdog_secs,
@@ -409,7 +649,7 @@ def train(
               f"{watchdog_secs}s, abort {2 * watchdog_secs}s)")
     heartbeat = watchdog.beat if watchdog is not None else None
     prof = None
-    if profile_dir:
+    if profile_dir and is_primary:
         from torch.profiler import (ProfilerActivity, profile,
                                     tensorboard_trace_handler)
         activities = [ProfilerActivity.CPU] + (
@@ -469,13 +709,15 @@ def train(
                           f"step_time={step_time:.3f}s")
                     window_start, window_steps = time.perf_counter(), 0
 
-                if viz_step and counter % viz_step == 0:
-                    union = float(metrics["union"])
-                    viz_iou = float(metrics["intersect"]) / union if union > 0 else 1.0
-                    _figure(logger, counter, "train/visualization", micro0,
-                            predict_fn(state, micro0[:6]),
-                            f"Training iter {counter} | IoU {viz_iou:.4f}",
-                            extent)
+                if predict_fn is not None and counter % viz_step == 0:
+                    logits = predict_fn(state, micro0[:6])
+                    if is_primary:
+                        union = float(metrics["union"])
+                        viz_iou = (float(metrics["intersect"]) / union
+                                   if union > 0 else 1.0)
+                        _figure(logger, counter, "train/visualization",
+                                micro0, logits, f"Training iter {counter} | "
+                                f"IoU {viz_iou:.4f}", extent)
                     window_start, window_steps = time.perf_counter(), 0
 
                 if val_step and counter % val_step == 0:
@@ -483,7 +725,8 @@ def train(
                         watchdog.pause()
                     if ema_decay:
                         if recal_window:
-                            recalibrate_bn(state.ema_model, recal_window)
+                            recalibrate_bn(state.ema_model, recal_window,
+                                           mean_over_ranks)
                         val_info = get_val_info(ema_eval_fn, state, valloader,
                                                 dev, heartbeat)
                         raw_info = get_val_info(eval_fn, state, valloader,
@@ -508,16 +751,17 @@ def train(
                         watchdog.beat()
                     if viz_val_batch is not None:
                         vb = to_device(viz_val_batch[:7], dev)
-                        _figure(logger, counter, "val/visualization", vb,
-                                val_predict_fn(state, vb[:6]),
-                                f"Validation iter {counter} | "
-                                f"IoU {val_info['iou']:.4f}", extent)
+                        logits = val_predict_fn(state, vb[:6])
+                        if is_primary:
+                            _figure(logger, counter, "val/visualization", vb,
+                                    logits, f"Validation iter {counter} | "
+                                    f"IoU {val_info['iou']:.4f}", extent)
                     if best_val_iou is None or val_info["iou"] > best_val_iou:
                         best_val_iou = val_info["iou"]
                         if watchdog is not None:
                             watchdog.pause()  # an abort mid-write would
                                               # lose the checkpoint
-                        save(ckpt.save_best, epoch, best_val_iou)
+                        save("save_best", epoch, best_val_iou)
                         logger.summary(best_val_iou=best_val_iou)
                         print(f"  new best IoU {best_val_iou:.4f} (saved)")
                         if watchdog is not None:
@@ -527,14 +771,16 @@ def train(
                 if save_step and counter % save_step == 0:
                     if watchdog is not None:
                         watchdog.pause()
-                    save(ckpt.save, epoch)
+                    save("save", epoch)
                     if watchdog is not None:
                         watchdog.beat()
                     window_start, window_steps = time.perf_counter(), 0
+                preempted = (signalled if mesh is None
+                             else mesh.any(signalled))
                 if preempted:
                     if watchdog is not None:
                         watchdog.pause()
-                    save(ckpt.save, epoch, wait=True)
+                    save("save", epoch, wait=True)
                     stop = True
                     break
                 if max_steps is not None and counter >= max_steps:
@@ -557,9 +803,10 @@ def train(
     if not preempted:
         # completion records epoch=nepochs (reference semantics); an early
         # stop records the true epoch, so a resume continues
-        save(ckpt.save_final,
+        save("save_final",
              nepochs if early_stop_epoch is None else early_stop_epoch)
-    ckpt.close()
+    if ckpt is not None:
+        ckpt.close()
     print(f"Best validation IoU: {best_val_iou}")
     return {"counter": counter, "start_counter": start_counter,
             "best_val_iou": best_val_iou, "state": state,

@@ -7,6 +7,10 @@ the model's device. Metrics come back as device scalars and are synced
 only where the caller reads them. Every factory takes ``device`` ("cuda"
 unless the caller asks for the CPU; no GPU raises) and moves each batch
 there.
+
+The parallel steps (``parallel/step.py``, ``parallel/camera.py``) are
+these steps with two hooks: ``forward`` replaces the model's forward on
+the six inputs, and ``reduce`` runs the step's collectives.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ def to_device(batch, device: torch.device):
 
 
 def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
-                    ema_decay: float = 0.0, device="cuda"):
+                    ema_decay: float = 0.0, device="cuda", forward=None,
+                    reduce=None):
     """Returns ``train_step(state, batch) -> metrics``.
 
     ``batch`` is the reference 7-tuple (imgs, rots, trans, intrins,
@@ -49,10 +54,11 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = resolve_device(device)
+    forward = forward or model
 
     def micro_step(micro):
-        imgs, rots, trans, intrins, post_rots, post_trans, binimgs = micro
-        logits = model(imgs, rots, trans, intrins, post_rots, post_trans)
+        logits = forward(*micro[:6])
+        binimgs = micro[6]
         loss = bce_with_logits(logits, binimgs, pos_weight)
         loss.backward()
         intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
@@ -74,22 +80,27 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
             loss = loss / accum_steps
             grads = [p.grad for p in state.optimizer.params if p.grad is not None]
             torch._foreach_div_(grads, float(accum_steps))
+        metrics = {"loss": loss, "intersect": intersect, "union": union}
+        if reduce is not None:
+            metrics = reduce(state, metrics)
         grad_norm = state.optimizer.step(state.step)
         state.step += 1
         if ema_decay > 0:
             ema_update(state, ema_decay)
-        return {"loss": loss, "intersect": intersect, "union": union,
-                "grad_norm": grad_norm}
+        return {**metrics, "grad_norm": grad_norm}
 
     return train_step
 
 
-def make_eval_step(model, pos_weight=2.13, device="cuda"):
+def make_eval_step(model, pos_weight=2.13, device="cuda", forward=None,
+                   reduce=None):
     """Returns ``eval_step(state, batch) -> metrics`` for ``get_val_info``:
     {loss_sum, intersect, union, intersect_c, union_c, batch}. An 8th
     batch element is the val loader's (B,) validity mask (``pad_last``);
-    padded samples count nowhere."""
+    padded samples count nowhere. ``forward`` and ``reduce(metrics) ->
+    metrics`` as in ``make_train_step``."""
     dev = resolve_device(device)
+    forward = forward or model
 
     def eval_step(state, batch):
         batch = to_device(batch, dev)
@@ -98,19 +109,22 @@ def make_eval_step(model, pos_weight=2.13, device="cuda"):
             torch.ones(imgs.shape[0], device=dev)
         model.eval()
         with torch.no_grad():
-            logits = model(imgs, rots, trans, intrins, post_rots, post_trans)
-        return masked_eval_metrics(logits, binimgs, valid, pos_weight)
+            logits = forward(imgs, rots, trans, intrins, post_rots, post_trans)
+        metrics = masked_eval_metrics(logits, binimgs, valid, pos_weight)
+        return metrics if reduce is None else reduce(metrics)
 
     return eval_step
 
 
-def make_predict_step(model, device="cuda"):
-    """Returns ``predict(state, inputs) -> logits (B, outC, X, Y)``."""
+def make_predict_step(model, device="cuda", forward=None):
+    """Returns ``predict(state, inputs) -> logits (B, outC, X, Y)``;
+    ``forward`` as in ``make_train_step``."""
     dev = resolve_device(device)
+    forward = forward or model
 
     def predict(state, inputs):
         model.eval()
         with torch.no_grad():
-            return model(*to_device(inputs, dev))
+            return forward(*to_device(inputs, dev))
 
     return predict

@@ -123,13 +123,15 @@ class CheckpointManager:
         return self._write(FINAL, counter, model, optimizer, epoch,
                            ema_model=ema_model)
 
-    def best_val_iou(self) -> Optional[float]:
-        """The val IoU ``model_best.pt`` records (None without one)."""
-        path = self.directory / BEST
-        if not path.exists():
-            return None
-        return float(torch.load(path, map_location="cpu", weights_only=True,
-                                mmap=True).get("val_iou", 0.0))
+
+def read_best_val_iou(directory) -> Optional[float]:
+    """The val IoU ``directory/model_best.pt`` records (None without one);
+    creates nothing."""
+    path = Path(directory) / BEST
+    if not path.exists():
+        return None
+    return float(torch.load(path, map_location="cpu", weights_only=True,
+                            mmap=True).get("val_iou", 0.0))
 
 
 def latest_checkpoint(directory) -> Optional[Path]:

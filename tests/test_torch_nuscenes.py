@@ -13,6 +13,7 @@ labels exact; lidar 1e-5; a step's loss 1e-4 relative and gradients as
 
 import ast
 import json
+import os
 from pathlib import Path
 
 import numpy as np
@@ -240,6 +241,27 @@ def test_compile_data_nuscenes_batches_and_val_mask(nusc_root, bsz):
     assert va.dataset.decoder.stats == {"native_resize": 6 * len(va) * bsz}
 
 
+def test_compile_data_nuscenes_shards_match_jax(nusc_root):
+    """Two data shards (bsz 1 each): batch counts and the val loaders'
+    indices and masks equal the JAX loaders' shards; shard k's train
+    dataset draws from seed + k, over one global shuffle."""
+    conf = DataAugConf(**TRAIN_AUG)
+    for k in (0, 1):
+        tr, va = N.compile_data_nuscenes(
+            "v1.0-mini", nusc_root, conf, GridConf(), bsz=1, nworkers=0,
+            seed=7, shard_index=k, num_shards=2)
+        jtr, jva = JN.compile_data_nuscenes(
+            "v1.0-mini", nusc_root, JAug(**TRAIN_AUG), JGrid(), bsz=1,
+            nworkers=0, shard_index=k, num_shards=2)
+        assert (len(tr), len(va)) == (len(jtr), len(jva)) == (3, 2)
+        for (gi, gv), (wi, wv) in zip(va._batch_indices(), jva._batch_indices()):
+            np.testing.assert_array_equal(gi, wi)
+            np.testing.assert_array_equal(gv, wv)
+        assert (tr.shard_index, tr.num_shards, tr._seed) == (k, 2, 7)
+        assert torch.equal(tr.dataset.generator.get_state(),
+                           torch.Generator().manual_seed(7 + k).get_state())
+
+
 def test_loss_and_gradients_on_a_nuscenes_batch_match_jax(nusc_root):
     """The loss and gradients of one step of a slim LSS (tiny grid) with
     converted random weights on the same 5-camera nuScenes batch (the
@@ -436,9 +458,18 @@ def test_cli_parses_the_jax_flags(monkeypatch):
     assert (kw["dataset"], kw["device_normalize"], kw["nuscenes_version"],
             kw["compute_dtype"], kw["ema_decay"], kw["lr_schedule"]) == \
         ("simbev", False, "v1.0-trainval", "bfloat16", 0.999, "cosine")
-    for flags in (["--n_devices", "2"], ["--cam_devices", "2"]):
-        with pytest.raises(NotImplementedError, match="§A, parallel modes"):
-            train_nuscenes.main(["--dataroot", "d", *flags])
+    # the parallel flags reach train(): --n_devices runs data-parallel
+    # ranks; --cam_devices cannot split the config's 5 training cameras
+    kw = train_nuscenes.train_kwargs(p.parse_args(
+        ["--dataroot", "d", "--n_devices", "2", "--cam_devices", "3"]))
+    assert (kw["n_devices"], kw["cam_devices"]) == (2, 3)
+    monkeypatch.setattr(os, "cpu_count", lambda: 8)  # ranks on the CPU
+    for flags, match in ((["--n_devices", "2", "--bsz", "3"],
+                          "bsz=3 must be divisible"),
+                         (["--n_devices", "2", "--cam_devices", "2"],
+                          "ncams=5 must be divisible")):
+        with pytest.raises(ValueError, match=match):
+            train_nuscenes.main(["--dataroot", "d", "--device", "cpu", *flags])
     seen = {}
     from lss_carla_torch.utils import supervise
     monkeypatch.setattr(supervise, "run_supervised",

@@ -52,7 +52,10 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.data.decode", "lss_carla_torch.data.nuscenes",
             "lss_carla_torch.data.nusc_maps",
             "lss_carla_torch.data.fixtures_nuscenes",
-            "lss_carla_torch.train_nuscenes"} <= set(modules)
+            "lss_carla_torch.train_nuscenes", "lss_carla_torch.parallel.__init__",
+            "lss_carla_torch.parallel.mesh", "lss_carla_torch.parallel.step",
+            "lss_carla_torch.parallel.camera",
+            "lss_carla_torch.parallel.dryrun"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

@@ -141,8 +141,8 @@ exits non-zero without the final result line:
     native and PIL in turns, on ``bench.py``'s default augmentation
     (crop-only) and the fast recipe's ``resize_lim 0.70 0.85`` (resize);
     the fast recipe's ``train()`` loop (B0 bsz 8, bf16, 4 loader threads,
-    100 steps, 8 steps an epoch), native and PIL in six turns, each run's
-    mean step over steps 21-100, and each side's idle share against the
+    60 steps, 8 steps an epoch), native and PIL in four turns, each run's
+    mean step over steps 21-60, and each side's idle share against the
     device busy time of a profile of the step alone;
 21. the parallel modes (``lss_carla_torch/parallel``) at full width, B0
     default: NCCL refuses two ranks on one device, so (a) gloo ranks share
@@ -152,7 +152,7 @@ exits non-zero without the final result line:
     in turn, gradients and running stats averaged) to phase 9's limits,
     then 3 steps with dropout on after which the replicas are bit-equal,
     and the EMA's BN recalibration across the 2 ranks (``fused_dw``: the
-    depthwise kernel's sums averaged over the ranks) against one process's
+    depthwise kernel's sums summed over the ranks) against one process's
     over the whole batch, to phase 9's running-stats limit; the
     camera-parallel predict at (data 1, cam 2) and (1, 3) against the
     unsharded forward (``SERVE_TOL``), each rank's splat launches counted,
@@ -162,6 +162,30 @@ exits non-zero without the final result line:
     for bit, inside the data-parallel step too, whose f32 result is held
     to the single-device step's by phase 9's limits (bf16 a reading).
     Gloo's step time is a reading only: it copies through the host.
+22. the BEV-grid mode (``parallel/grid.py``, ``parallel/halo.py``) on gloo
+    ranks that share cuda:0, as in phase 21: B0 at 200 x 200, f32, TF32
+    off, bsz 4; the predict at (data, grid) (1, 2), (1, 4) and (2, 2)
+    against the unsharded forward (``SERVE_TOL``); one train step (dropout
+    0) at (1, 2) and (2, 2) against the single-device step on the whole
+    batch, to phase 9's limits (no emulation: the grid step is that step);
+    3 steps at (2, 2) with dropout on, after which the replicas are
+    bit-equal; each rank's splat launches counted; the stretch model (B4,
+    400 x 400, 4 classes, f32) through the grid predict at (1, 2) against
+    its unsharded forward, each rank's peak memory beside the
+    single-device forward's (a reading);
+23. activation rematerialisation (``compile_model(remat=True)``): one B0
+    step at bsz 4 (``fused_dw``, f32, TF32 off, dropout 0) with remat
+    against the same step without, to phase 9's limits, every running
+    stat updated once, 32 depthwise launches and 1 splat launch a step
+    (16 and 1 without); the stretch step (B4 bf16, 400 x 400, bsz 4,
+    ``fused_dw``) with remat off and on in turns: peak memory and step ms
+    (readings);
+24. the serving artifact as a ``torch.export`` program (``serving.py``,
+    the kernels as ``lss::`` operators, ``ops/library.py``): B0 exported in
+    f32 with the uint8 signature and in int8, both loaded and run in one
+    fresh interpreter that imports no module of ``lss_carla_torch.models``
+    (the splat launches counted there), its logits against the live model
+    (``SERVE_TOL``); the f32 artifact served once over HTTP.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -211,6 +235,7 @@ from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
                                         same_pad)
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
 from lss_carla_torch.parallel import camera as pcamera
+from lss_carla_torch.parallel import grid as pgrid
 from lss_carla_torch.parallel import mesh as pmesh
 from lss_carla_torch.parallel import step as pstep
 from lss_carla_torch.server import serve
@@ -1942,7 +1967,8 @@ def phase_int8(tmp, rng, seed, b0_run):
     err, scale = assert_close("int8 served", served, _logits(qcard, many).numpy(),
                               SERVE_TOL)
     n_exact = int8_accumulators_exact(qcard, many)
-    print(f"int8 artifact (bsz 8, uint8, float weights in the file) served "
+    print(f"int8 artifact (bsz 8, uint8, the int8 program exported on the "
+          f"CPU and moved to the card) served "
           f"over HTTP: max |served - live int8| {err:.3e} (tolerance "
           f"{SERVE_TOL} x {scale:.3f}); splat kernel launches {launches}; "
           f"int32 accumulators of all {n_exact} int8 convs, card = CPU bit "
@@ -2214,8 +2240,8 @@ def phase_nuscenes(tmp, seed, gen):
 # --- phase 20: the decoder on the card's host ----------------------------
 
 FAST_AUG = DataAugConf(resize_lim=(0.70, 0.85))  # recipes/simbev_fast.sh
-RECIPE_STEPS = 100  # each run reads the 10-step windows of steps 21-100
-RECIPE_TURNS = (True, False, False, True, True, False)  # native or PIL
+RECIPE_STEPS = 60  # each run reads the 10-step windows of steps 21-60
+RECIPE_TURNS = (True, False, False, True)  # native or PIL
 
 
 def host_cpu() -> str:
@@ -2394,11 +2420,10 @@ def parallel_rank(rank: int, world: int, tmp: str) -> None:
             pmesh.check_replicated(model, mesh)
             # the EMA's BN recalibration across the ranks, as the trainer
             # runs it: every BN takes the ranks' batches' moments, the fused
-            # bn1 from the depthwise kernel's sums averaged over the ranks
+            # bn1 from the depthwise kernel's sums summed over the ranks
             model = b0_for(seed, True, fused_dw=True)
             launched("dp_recal", lambda: recalibrate_bn(
-                model, [pmesh.shard_batch(mesh, batch)],
-                lambda ts: pstep.all_reduce_packed([ts], [0.5], mesh.world)))
+                model, [pmesh.shard_batch(mesh, batch)], dist.group.WORLD))
             out["dp_recal"] = running_stats_of(model)
             # PARALLEL_STEPS steps with dropout on: the masks differ by
             # rank, the replicas must not
@@ -2679,6 +2704,357 @@ def phase_parallel(tmp: str, seed: int, card: str) -> dict:
     return launches
 
 
+# --- phase 22: the BEV-grid mode on gloo ranks ---------------------------
+# As phase 21: gloo ranks share cuda:0, their exchanges staged through the
+# host (parallel/halo.py). The grid step is the single-device step on the
+# whole batch (global-batch BN, the global mean loss), so it is held to
+# that step itself, to phase 9's limits.
+
+GRID_STEPS = 3   # grid steps with dropout on, then the digests
+GRID_BSZ = 4
+
+
+def grid_rank(rank: int, world: int, tmp: str) -> None:
+    """One gloo rank of phase 22 on cuda:0 (spawned): the grid predict at
+    (1, 2) or at (1, 4) and (2, 2), one train step at (1, 2) and (2, 2),
+    GRID_STEPS steps with dropout on at (2, 2), the stretch predict at (1,
+    2); its results to ``tmp/grid<r>-of-<world>.pt``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    pmesh.init_process(rank, world, f"file://{tmp}/grid-store{world}", dev,
+                       backend="gloo")
+    p = torch.load(f"{tmp}/grid-payload.pt", weights_only=False)
+    seed, out = p["seed"], {}
+    batch = tuple(torch.as_tensor(a).to(dev) for a in p["batch"])
+
+    def launched(key, fn):
+        reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        out[key + "_launches"] = {"splat": splat_cuda.launches,
+                                  "dw_conv_stats": mbconv_cuda.launches}
+        return result
+
+    try:
+        for shape in ([(1, 2)] if world == 2 else [(1, 4), (2, 2)]):
+            mesh = pmesh.make_mesh_grid(*shape, dev)
+            rows = pgrid.shard_batch_grid(mesh, batch)
+            predict = pgrid.make_grid_sharded_predict(b0_for(seed, False), mesh)
+            out[f"predict{shape}"] = launched(
+                f"predict{shape}", lambda: predict(None, rows[:6])).cpu()
+            out["data_index", shape] = mesh.data_index
+            if shape != (1, 4):
+                model = b0_for(seed, True)
+                step = pgrid.make_grid_sharded_train_step(model, mesh, 2.13,
+                                                          seed=seed)
+                m = launched(f"train{shape}",
+                             lambda: step(create_train_state(model), rows))
+                out[f"train{shape}"] = step_result(model, m)
+                pmesh.check_replicated(model, mesh)
+            if shape == (2, 2):
+                model = compile_model(
+                    GridConf(), DataAugConf(), outC=1, variant="b0",
+                    device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+                state = create_train_state(model)
+                step = pgrid.make_grid_sharded_train_step(model, mesh, 2.13,
+                                                          seed=seed)
+                ms = []
+
+                def steps():
+                    for i in range(GRID_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        step(state, pgrid.shard_batch_grid(mesh, tuple(
+                            np.roll(a, i, 0) for a in p["batch"])))
+                        torch.cuda.synchronize()
+                        ms.append(1e3 * (time.perf_counter() - t0))
+                launched("dropout", steps)
+                out["digest"] = pmesh.check_replicated(model, mesh)
+                out["ms"] = ms
+            if shape == (1, 2):
+                model = stretch_model(seed, "float32", fused_dw=False).eval()
+                srows = pgrid.shard_batch_grid(mesh, tuple(
+                    torch.as_tensor(a).to(dev) for a in p["stretch"]))
+                predict = pgrid.make_grid_sharded_predict(model, mesh)
+                del model
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                out["stretch"] = launched(
+                    "stretch", lambda: predict(None, srows[:6])).cpu()
+                out["stretch_peak"] = torch.cuda.max_memory_allocated() - before
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{tmp}/grid{rank}-of-{world}.pt")
+
+
+def phase_grid(tmp: str, seed: int, card: str) -> dict:
+    """Phase 22. Returns the grid paths' launches, by kernel (all ranks)."""
+    t_phase = time.perf_counter()
+    tmp = f"{tmp}/grid"
+    os.makedirs(tmp)
+    rng = np.random.default_rng(seed + 22)
+    batch = (*inputs(rng, GRID_BSZ, uint8=True),
+             (rng.uniform(size=(GRID_BSZ, 1, 200, 200)) < 0.02).astype(np.float32))
+    stretch = inputs(rng, 2, uint8=True)
+    torch.save({"seed": seed, "batch": batch, "stretch": stretch},
+               f"{tmp}/grid-payload.pt")
+    outs = {}
+    for world in (2, 4):
+        t0 = time.perf_counter()
+        mp.start_processes(grid_rank, args=(world, tmp), nprocs=world,
+                           start_method="spawn")
+        outs[world] = [torch.load(f"{tmp}/grid{r}-of-{world}.pt",
+                                  weights_only=False) for r in range(world)]
+        print(f"grid: {world} gloo ranks on cuda:0 ran in "
+              f"{time.perf_counter() - t0:.1f} s (spawn, steps)", flush=True)
+    dev_batch = tuple(torch.as_tensor(a).cuda() for a in batch)
+
+    # the predict against the unsharded forward; each rank's splat launches
+    model = b0_for(seed, False)
+    with torch.no_grad():
+        ref = model(*dev_batch[:6]).cpu().numpy()
+    errs, notes = [], []
+    for world, shape in ((2, (1, 2)), (4, (1, 4)), (4, (2, 2))):
+        rows = GRID_BSZ // shape[0]
+        for r, out in enumerate(outs[world]):
+            assert out[f"predict{shape}_launches"] == {
+                "splat": 1, "dw_conv_stats": 0}, (shape, r, out)
+            d = out["data_index", shape]
+            err, scale = assert_close(f"grid predict {shape} rank {r}",
+                                      out[f"predict{shape}"].numpy(),
+                                      ref[d * rows:(d + 1) * rows], SERVE_TOL)
+            errs.append(err)
+    # one train step against the single-device step on the whole batch
+    single = b0_for(seed, True)
+    before = {k: v.detach().cpu().clone() for k, v in single.named_parameters()}
+    want = step_result(single, make_train_step(single, 2.13, device="cuda")(
+        create_train_state(single), dev_batch))
+    for world, shape in ((2, (1, 2)), (4, (2, 2))):
+        notes.append(f"{shape}: " + check_step(outs[world][0][f"train{shape}"],
+                                               want, before))
+        for r, out in enumerate(outs[world]):
+            assert out[f"train{shape}_launches"] == {
+                "splat": 1, "dw_conv_stats": 0}, (shape, r, out)
+            for k, v in outs[world][0][f"train{shape}"]["params"].items():
+                assert torch.equal(v, out[f"train{shape}"]["params"][k]), k
+    digests = {out["digest"] for out in outs[4]}
+    assert len(digests) == 1, digests
+    for out in outs[4]:
+        assert out["dropout_launches"] == {"splat": GRID_STEPS,
+                                           "dw_conv_stats": 0}, out
+    # the stretch model's grid predict against its unsharded forward, and
+    # the peak memory of each against one process's forward
+    model = stretch_model(seed, "float32", fused_dw=False).eval()
+    dev_stretch = [torch.as_tensor(a).cuda() for a in stretch]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        sref = model(*dev_stretch).cpu().numpy()
+    single_peak = torch.cuda.max_memory_allocated() - before
+    del model
+    torch.cuda.empty_cache()
+    serrs = []
+    for r, out in enumerate(outs[2]):
+        assert out["stretch_launches"] == {"splat": 1, "dw_conv_stats": 0}, out
+        serrs.append(assert_close(f"grid stretch predict rank {r}",
+                                  out["stretch"].numpy(), sref, SERVE_TOL))
+    gib = 2.0 ** 30
+    print(f"grid: the predict at (data, grid) (1, 2), (1, 4) and (2, 2), B0 "
+          f"bsz {GRID_BSZ} eval (randomised BN, f32, TF32 off), against the "
+          f"unsharded forward on the card: max |diff| {max(errs):.3e} (limit "
+          f"{SERVE_TOL} x {scale:.3f}); each rank launched the splat once, on "
+          f"its {GRID_BSZ // 2} or 1 lift rows; one train step (dropout 0) at "
+          f"(1, 2) and (2, 2) against the single-device step on the whole "
+          f"batch (phase 9's limits), each rank's parameters bit-equal: "
+          f"{'; '.join(notes)}; {GRID_STEPS} steps at (2, 2) with dropout on: "
+          f"replicas bit-equal (sha256 {digests.pop()[:16]}), gloo step ms on "
+          f"{card} (rank 0, host clock, a reading only: every exchange goes "
+          f"through the host) {', '.join(f'{v:.1f}' for v in outs[4][0]['ms'])}"
+          f"; the stretch model (B4, 400 x 400, 4 classes, f32) bsz 2 at (1, "
+          f"2) against its unsharded forward: max |diff| "
+          f"{max(e for e, _ in serrs):.3e} (limit {SERVE_TOL} x "
+          f"{serrs[0][1]:.3f}); the forward's peak device memory above what "
+          f"was allocated before it, a rank "
+          f"{', '.join(f'{o['stretch_peak'] / gib:.3f}' for o in outs[2])} GiB "
+          f"against the single-device forward's {single_peak / gib:.3f} GiB "
+          f"(max_memory_allocated, a reading)", flush=True)
+    launches = {k: sum(n[k] for o in outs[2] + outs[4] for key, n in o.items()
+                       if isinstance(key, str) and key.endswith("_launches"))
+                for k in ("splat", "dw_conv_stats")}
+    print(f"grid launches (all ranks): {launches}; phase 22 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# --- phase 23: activation rematerialisation -----------------------------
+
+REMAT_TURNS = (False, True, True, False)
+REMAT_STEPS = 3
+
+
+def remat_step(seed, remat, batch):
+    """One B0 train step (fused_dw, dropout 0, f32) with or without remat:
+    (step_result, launches, parameters before)."""
+    model = b0_for(seed, True, fused_dw=True)
+    model.remat = remat
+    before = {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+    state = create_train_state(model)
+    step = make_train_step(model, 2.13, device="cuda")
+    reset_launches()
+    m = step(state, batch)
+    torch.cuda.synchronize()
+    launches = {"splat": splat_cuda.launches,
+                "dw_conv_stats": mbconv_cuda.launches}
+    counts = {b.item() for k, b in model.named_buffers()
+              if k.endswith("num_batches_tracked")}
+    assert counts == {1}, (remat, counts)  # every running stat updated once
+    return step_result(model, m), launches, before
+
+
+def phase_remat(seed: int, card: str) -> dict:
+    """Phase 23. Returns the remat path's launches, by kernel."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 23)
+    batch = tuple(torch.as_tensor(a).cuda() for a in (
+        *inputs(rng, 4, uint8=True),
+        (rng.uniform(size=(4, 1, 200, 200)) < 0.02).astype(np.float32)))
+    plain, plain_launches, before = remat_step(seed, False, batch)
+    got, launches, _ = remat_step(seed, True, batch)
+    assert plain_launches == {"splat": 1, "dw_conv_stats": DW_PER_FORWARD}, \
+        plain_launches
+    assert launches == {"splat": 1, "dw_conv_stats": 2 * DW_PER_FORWARD}, \
+        launches
+    text = check_step(got, plain, before)
+    # the stretch step, remat off and on in turns: peak memory and step ms
+    srng = np.random.default_rng(seed + 230)
+    sbatch = tuple(torch.as_tensor(a).cuda() for a in (
+        *inputs(srng, 4, uint8=True),
+        (srng.uniform(size=(4, STRETCH_CLASSES, 400, 400)) < 0.02).astype(
+            np.float32)))
+    models = {}
+    for remat in (False, True):
+        model = stretch_model(seed, "bfloat16", fused_dw=True).train()
+        model.remat = remat
+        models[remat] = (model, create_train_state(model),
+                         make_train_step(model, 2.13, device="cuda"))
+        models[remat][2](models[remat][1], sbatch)  # warm-up
+    readings = {False: [], True: []}
+    for remat in REMAT_TURNS:
+        model, state, step = models[remat]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(REMAT_STEPS):
+            step(state, sbatch)
+        torch.cuda.synchronize()
+        readings[remat].append((
+            (time.perf_counter() - t0) * 1e3 / REMAT_STEPS,
+            (torch.cuda.max_memory_allocated() - before) / 2.0 ** 30))
+    del models
+    torch.cuda.empty_cache()
+    fmt = lambda r: ", ".join(f"{ms:.1f} ms / {gb:.3f} GiB" for ms, gb in r)  # noqa: E731
+    print(f"remat: one B0 train step at bsz 4 (fused_dw, dropout 0, f32, TF32 "
+          f"off) with remat against the same step without (phase 9's "
+          f"limits): {text}; every BN's running stats updated once "
+          f"(num_batches_tracked 1); launches a step with remat: splat "
+          f"{launches['splat']}, dw_conv_stats {launches['dw_conv_stats']} "
+          f"(without: {plain_launches['dw_conv_stats']}); the stretch step "
+          f"(B4 bf16, 400 x 400, 4 classes, fused_dw, bsz 4) on {card}, "
+          f"mean of {REMAT_STEPS} steps and their peak memory above what was "
+          f"allocated before them (max_memory_allocated) in turns "
+          f"{REMAT_TURNS}: remat off {fmt(readings[False])}; remat on "
+          f"{fmt(readings[True])} (readings; host clock, synchronised); phase "
+          f"23 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# --- phase 24: the exported program, loaded without the model code ------
+
+LOAD_ALONE = """
+import json, sys
+import numpy as np
+import torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from lss_carla_torch.ops import splat_cuda
+from lss_carla_torch.serving import load_predict
+inputs, pairs = sys.argv[1], sys.argv[2:]
+args = tuple(np.load(inputs)[f"a{i}"] for i in range(6))
+info = {}
+for path, out in zip(pairs[::2], pairs[1::2]):
+    predict = load_predict(path, device="cuda")
+    predict(*args)  # warm-up
+    splat_cuda.reset_launches()
+    np.save(out, predict(*args).cpu().numpy())
+    info[path] = {"splat": splat_cuda.launches, "moved_from": predict.moved_from}
+models = [m for m in sys.modules if m.startswith("lss_carla_torch.models")]
+assert not models, models
+print(json.dumps(info))
+"""
+
+
+def phase_export(tmp: str, seed: int) -> dict:
+    """Phase 24. Returns the splat launches of the exported programs'
+    loads, by artifact."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 24)
+    args = inputs(rng, 2, uint8=True)
+    np.savez(f"{tmp}/export-inputs.npz", **{f"a{i}": a for i, a in enumerate(args)})
+    model = b0_for(seed, False)
+    lives = {"f32": model, "int8": quant.quantize_model(model)[0]}
+    paths = {name: f"{tmp}/export-{name}.pt2" for name in lives}
+    exported = {}
+    for name, path in paths.items():
+        t0 = time.perf_counter()
+        export_predict(model, path, bsz=2, uint8_images=True,
+                       quantize=name == "int8")
+        exported[name] = (time.perf_counter() - t0, os.path.getsize(path) / 1e6)
+    # both programs loaded and run by one fresh interpreter
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", LOAD_ALONE, f"{tmp}/export-inputs.npz",
+         *[x for name, path in paths.items()
+           for x in (path, f"{tmp}/export-{name}.npy")]],
+        capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    t_load = time.perf_counter() - t0
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    notes, launches = [], {}
+    for name, path in paths.items():
+        assert info[path] == {"splat": 1, "moved_from": None}, info
+        launches[name] = info[path]["splat"]
+        err, scale = assert_close(f"exported {name} vs live",
+                                  np.load(f"{tmp}/export-{name}.npy"),
+                                  _logits(lives[name], args).numpy(), SERVE_TOL)
+        notes.append(f"{name}: max |diff| {err:.3e} (limit {SERVE_TOL} x "
+                     f"{scale:.3f}), export {exported[name][0]:.1f} s, "
+                     f"{exported[name][1]:.1f} MB")
+    splat_cuda.reset_launches()
+    with Running(serve(paths["f32"], port=0, warmup_args=args,
+                       device="cuda")) as base:
+        served = post(base, args)
+    launches["http"] = splat_cuda.launches
+    err, _ = assert_close("exported f32 over HTTP", served,
+                          np.load(f"{tmp}/export-f32.npy"), SERVE_TOL)
+    print(f"export: B0 (randomised BN, f32, TF32 off, bsz 2, uint8 "
+          f"signature) as a torch.export program, f32 and int8 (ops/quant.py "
+          f"baked in), both loaded in one fresh interpreter that imports no "
+          f"module of lss_carla_torch.models and launched the splat kernel "
+          f"once a forward of each (lss::splat in the graph), against the "
+          f"live model on the card: {'; '.join(notes)}; the interpreter "
+          f"(start, two loads, four forwards) {t_load:.1f} s; the f32 "
+          f"artifact served once over HTTP by server.py: max |diff| "
+          f"{err:.3e} against the subprocess's logits, {launches['http']} "
+          f"splat launches (warm-up and request); phase 24 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
@@ -2847,7 +3223,15 @@ def main(argv=None) -> int:
         # 21. the parallel modes: gloo ranks on the card, NCCL on one rank
         at(21)
         par_launches = phase_parallel(tmp, args.seed, card)
-        at(22)  # the end
+
+        # 22. the BEV-grid mode; 23. remat; 24. the exported program
+        at(22)
+        grid_launches = phase_grid(tmp, args.seed, card)
+        at(23)
+        remat_launches = phase_remat(args.seed, card)
+        at(24)
+        export_launches = phase_export(tmp, args.seed)
+        at(25)  # the end
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training + {stretch_launches['splat']} stretch (bf16) + "
@@ -2858,7 +3242,9 @@ def main(argv=None) -> int:
           f"training + {stretch_launches['dw_conv_stats']} stretch (bf16) + 0 "
           f"ResNet + 0 explore + 0 int8 (eval mode) + "
           f"{nusc_launches['dw_conv_stats']} nuScenes; parallel paths (every "
-          f"rank): {par_launches}", flush=True)
+          f"rank): {par_launches}; grid (every rank): {grid_launches}; remat: "
+          f"{remat_launches}; exported programs (splat): {export_launches}",
+          flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def parallel_row(name):
@@ -2879,21 +3265,31 @@ def main(argv=None) -> int:
                 "launches": (launches + splat_train + stretch_launches["splat"]
                              + resnet_launches + explore_launches
                              + int8_launches + nusc_launches["splat"]
-                             + parallel_total("splat")),
+                             + parallel_total("splat") + grid_launches["splat"]
+                             + remat_launches["splat"]
+                             + sum(export_launches.values())),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat"),
                 "nuscenes": nusc_rows["splat"],
-                "parallel_launches": parallel_row("splat")},
+                "parallel_launches": parallel_row("splat"),
+                "grid_launches": grid_launches["splat"],
+                "remat_launches": remat_launches["splat"],
+                "export_launches": export_launches},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
                 "launches": (dw_launches + stretch_launches["dw_conv_stats"]
                              + nusc_launches["dw_conv_stats"]
-                             + parallel_total("dw_conv_stats")),
+                             + parallel_total("dw_conv_stats")
+                             + grid_launches["dw_conv_stats"]
+                             + remat_launches["dw_conv_stats"]),
                 "max_abs_err": dw_err, **dw_times,
                 "stretch_bf16": stretch_row("dw_conv_stats"),
                 "nuscenes": nusc_rows["dw_conv_stats"],
-                "parallel_launches": parallel_row("dw_conv_stats")}]
+                "parallel_launches": parallel_row("dw_conv_stats"),
+                "grid_launches": grid_launches["dw_conv_stats"],
+                "remat_launches": remat_launches["dw_conv_stats"],
+                "export_launches": 0}]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -30,10 +30,10 @@ settings: cuDNN and matmul TF32 as torch's defaults leave them, torch and
 CUDA versions, the card's name and power limit; each measurement also
 prints its batch shapes and the three windows.
 
-Left out: ``--compiler_option`` (XLA options; no counterpart). ``--remat``
-parses and raises ``NotImplementedError``: the port's ``compile_model``
-has no activation rematerialisation yet (``ROADMAP.md`` §A,
-rematerialisation). ``--device cpu`` times on the host clock (tests only).
+``--remat`` rematerialises the two encoders in the train step
+(``compile_model(remat=True)``, ``models/lss.py``); as in ``bench.py`` it
+keeps the metric's name. Left out: ``--compiler_option`` (XLA options; no
+counterpart). ``--device cpu`` times on the host clock (tests only).
 """
 
 from __future__ import annotations
@@ -55,18 +55,18 @@ from lss_carla_torch.training.step import make_train_step
 from lss_carla_torch.utils.backend import card_line, resolve_device
 
 BASELINE_STEP_MS = 800.0  # 8 samples x ~100 ms/sample (bench.py's docstring)
-REMAT = "ROADMAP.md §A, rematerialisation"
 
 
 def build(bsz, splat_method="scatter", dtype="float32", variant="b0",
-          fused_dw=False, device="cuda", accum=1):
+          fused_dw=False, device="cuda", accum=1, remat=False):
     """(train_step, state, batch): bench.py's seeded model and inputs, the
     batch on ``device``; ``accum > 1`` stacks ``accum`` copies of it as
     microbatches of one step."""
     dev = resolve_device(device)
     model = compile_model(GridConf(), DataAugConf(), outC=1,
                           splat_method=splat_method, compute_dtype=dtype,
-                          variant=variant, fused_dw=fused_dw, device=dev,
+                          variant=variant, fused_dw=fused_dw, remat=remat,
+                          device=dev,
                           generator=torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     B, N, fH, fW = bsz, 6, 128, 352
@@ -121,11 +121,12 @@ def _shapes(batch) -> str:
 
 
 def bench_step(bsz, iters, splat_method, dtype, variant="b0", warmup=1,
-               accum=1, fused_dw=False, device="cuda"):
+               accum=1, fused_dw=False, device="cuda", remat=False):
     """Train-step time; prints its JSON line. ``accum > 1``: ``accum``
-    stacked microbatches of ``bsz`` per optimizer step, ms per step."""
+    stacked microbatches of ``bsz`` per optimizer step, ms per step;
+    ``remat``: the encoders rematerialised."""
     step, state, batch = build(bsz, splat_method, dtype, variant, fused_dw,
-                               device, accum)
+                               device, accum, remat)
     windows = time_windows(lambda: step(state, batch), iters, max(1, warmup),
                            device)
     ms = sorted(windows)[1] / iters
@@ -136,7 +137,8 @@ def bench_step(bsz, iters, splat_method, dtype, variant="b0", warmup=1,
         suffix += f"_accum{accum}"
     if fused_dw:
         suffix += "_fused_dw"
-    print(f"bench: train step, {_shapes(batch)}, {dtype}, windows of "
+    print(f"bench: train step, {_shapes(batch)}, {dtype}"
+          f"{', remat' if remat else ''}, windows of "
           f"{iters} (ms) {[round(w, 3) for w in windows]}", flush=True)
     # vs_baseline scales the 800 ms bsz-8 floor by the effective batch
     print(json.dumps({
@@ -237,7 +239,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", default="all",
                    choices=["all", "step", "input", "infer"])
     p.add_argument("--remat", action="store_true",
-                   help=f"not ported yet ({REMAT})")
+                   help="rematerialise the encoders in the train steps "
+                        "(compile_model(remat=True))")
     p.add_argument("--variant", default="b0",
                    choices=["b0", "b1", "b2", "b3", "b4",
                             "resnet18", "resnet34"],
@@ -274,10 +277,6 @@ def main(argv=None) -> int:
     if args.fused_dw and args.mode != "step":
         p.error("--fused_dw only applies to --mode step (the fusion is a "
                 "train-path rewrite; eval/infer use the standard convs)")
-    if args.remat:
-        raise NotImplementedError(
-            "--remat: activation rematerialisation is not ported to "
-            f"lss_carla_torch yet ({REMAT})")
     dtype = args.dtype or "bfloat16"
     device = str(resolve_device(args.device))
     print("bench settings: " + json.dumps(settings(device)), flush=True)
@@ -290,14 +289,14 @@ def main(argv=None) -> int:
     elif args.mode == "step":
         bench_step(args.bsz, args.iters, args.splat_method, dtype,
                    args.variant, args.warmup, args.accum, args.fused_dw,
-                   device)
+                   device, args.remat)
     else:  # all: the f32 step, inference, and the headline bf16 step last
         bench_step(args.bsz, args.iters, args.splat_method, "float32",
-                   warmup=args.warmup, device=device)
+                   warmup=args.warmup, device=device, remat=args.remat)
         bench_infer(args.bsz, args.iters, "bfloat16", warmup=args.warmup,
                     device=device)
         bench_step(args.bsz, args.iters, args.splat_method, "bfloat16",
-                   warmup=args.warmup, device=device)
+                   warmup=args.warmup, device=device, remat=args.remat)
     return 0
 
 

@@ -56,8 +56,8 @@ from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.ops.geometry import (create_frustum, ego_to_cam,
                                           get_geometry, get_only_in_img_mask)
 from lss_carla_torch.ops.quant import quantize_model
-from lss_carla_torch.ops.splat import (_gather_cotangent, splat,
-                                       splat_reference, voxel_indices)
+from lss_carla_torch.ops.library import gather_cotangent, splat_reference
+from lss_carla_torch.ops.splat import splat, voxel_indices
 from lss_carla_torch.training.loop import get_val_info
 from lss_carla_torch.training.loss import bce_with_logits
 from lss_carla_torch.training.step import (make_eval_step, make_predict_step,
@@ -259,7 +259,7 @@ class _PlainSplat(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (ids,) = ctx.saved_tensors
-        return _gather_cotangent(g, ids, ctx.num_slots), None, None
+        return gather_cotangent(g, ids, ctx.num_slots), None, None
 
 
 def _synthetic_batch(bsz: int, device, **model_kw):
@@ -283,13 +283,16 @@ def _synthetic_batch(bsz: int, device, **model_kw):
 
 
 def splat_check(dataroot=None, bsz=2, device="cuda", variant: str = "b0",
-                compute_dtype: str = "float32", **kw) -> dict:
+                compute_dtype: str = "float32", remat: bool = False,
+                **kw) -> dict:
     """Forward and backward of one batch through the kernel and the plain
     splat (the reference ``cumsum_check`` contract, ``explore.py:166-191``).
 
     With a ``dataroot``: the first train batch of that data, through the
     model ``_build`` makes (``kw`` as there); without: the JAX tool's tiny
-    synthetic config (``kw`` unused). Returns {"kernel": side, "plain":
+    synthetic config (``kw`` unused). ``remat`` is the model's field, which
+    the tool carries as JAX's does (its eval-mode forward leaves it
+    idle). Returns {"kernel": side, "plain":
     side}, each side {"out_mean", "grad_mean", "loss" (floats), "logits",
     "grad" (the depthnet weight gradient; tensors)}.
 
@@ -301,12 +304,13 @@ def splat_check(dataroot=None, bsz=2, device="cuda", variant: str = "b0",
     dev = resolve_device(device)
     if dataroot is not None:
         model, trainloader, *_ = _build(dataroot, bsz=bsz, device=dev,
-                                        variant=variant,
+                                        variant=variant, remat=remat,
                                         compute_dtype=compute_dtype, **kw)
         batch = next(iter(trainloader))
     else:
         model, batch = _synthetic_batch(bsz, dev, variant=variant,
-                                        compute_dtype=compute_dtype)
+                                        compute_dtype=compute_dtype,
+                                        remat=remat)
     imgs, rots, trans, intrins, post_rots, post_trans, binimgs = \
         to_device(batch[:7], dev)
     X, Y, nz = (int(n) for n in model.nx)

@@ -16,14 +16,43 @@ Parameters and running stats stay f32.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from lss_carla_torch.ops.image import upsample_align_corners
 
 # channel dropout: zeroes whole feature maps in training, identity in eval
 Dropout2d = nn.Dropout2d
+
+# > 0 while ``remat`` recomputes a checkpointed forward in the backward
+_RECOMPUTING = [0]
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _RECOMPUTING[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTING[0] -= 1
+
+
+def remat(fn, *args):
+    """``fn(*args)`` with its activations rematerialised: nothing inside is
+    kept for the backward but ``args``; the backward runs ``fn`` again
+    (``torch.utils.checkpoint``, non-reentrant, with the CPU and CUDA
+    random states of the first run, so dropout draws the same masks). The
+    second run updates no BN running stats and records no moments
+    (``BatchNorm2d.update_running_stats``), as flax's ``nn.remat`` updates
+    them once."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _recomputing()))
 
 
 class Conv2d(nn.Conv2d):
@@ -33,6 +62,57 @@ class Conv2d(nn.Conv2d):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class SyncBatchNormFn(torch.autograd.Function):
+    """Train-mode BN over the batches of every rank in ``group`` together,
+    with a gradient; the ranks may hold different numbers of values (a
+    grid rank's slab may be empty).
+
+    Forward: one all-reduce of the count and the sum gives the mean; a
+    second, of the centred sum of squares, gives the biased variance (two
+    passes, no cancellation). Backward: one all-reduce of the packed
+    sums of dy and dy * x_hat; the weight and bias gradients stay this
+    rank's own parts, which the step's gradient all-reduce sums. Computes
+    in f32 and returns x's dtype, with the global (mean, var) beside it
+    for the running stats. ``torch.nn.SyncBatchNorm`` does not serve: it
+    refuses CPU tensors and keeps the unbiased variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        C = x.shape[1]
+        xf = x.to(torch.float32)
+        part = torch.cat([xf.sum((0, 2, 3)),
+                          xf.new_full((1,), float(xf.numel() // C))])
+        dist.all_reduce(part, group=group)
+        count = part[C]
+        mean = part[:C] / count
+        var = (xf - mean[:, None, None]).square().sum((0, 2, 3))
+        dist.all_reduce(var, group=group)
+        var = var / count
+        invstd = torch.rsqrt(var + eps)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        # centred first, as F.batch_norm: folding the mean into a shift
+        # (x * scale + (bias - mean * scale)) cancels where |mean| >> std
+        y = ((xf - mean[:, None, None]) * (weight * invstd)[:, None, None]
+             + bias[:, None, None])
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        C = x.shape[1]
+        dyf = dy.to(torch.float32)
+        xhat = (x.to(torch.float32) - mean[:, None, None]) * invstd[:, None, None]
+        local = torch.cat([dyf.sum((0, 2, 3)), (dyf * xhat).sum((0, 2, 3))])
+        dweight, dbias = local[C:].clone(), local[:C].clone()
+        dist.all_reduce(local, group=ctx.group)
+        mdy, mdyx = local[:C] / count, local[C:] / count
+        dx = (weight * invstd)[:, None, None] * (
+            dyf - mdy[:, None, None] - xhat * mdyx[:, None, None])
+        return dx.to(x.dtype), dweight, dbias, None, None
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -49,21 +129,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``update_running_stats``, the fused MBConv path's too. While
     ``moments`` is a list (``training/bn_recal.py`` sets it), that method
     appends each batch's (mean, var) there and leaves the running stats
-    alone. While ``sync`` is set too (a recalibration across ranks), a
-    train-mode forward normalises with the moments of the ranks' batches
-    together, as sync-BN does: ``sync(tensors)`` replaces each tensor, in
-    place, by its mean over the ranks. The fused MBConv path hands its
-    ``bn1.sync`` to ``ops/mbconv.py::fused_dw_bn_swish``, which averages
-    the kernel's sums the same way."""
+    alone. While ``group`` is set (a process group: the grid-parallel step,
+    a recalibration across ranks), a train-mode forward normalises with the
+    moments of all the group's ranks' values together, count-weighted, as
+    sync-BN does (``SyncBatchNormFn``, with its gradient). The fused MBConv
+    path hands its ``bn1.group`` to ``ops/mbconv.py::fused_dw_bn_swish``,
+    which combines the kernel's sums the same way."""
 
     moments = None
-    sync = None
+    group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        if self.sync is not None:
-            return self._synced(x)
+        if self.group is not None:
+            y, mean, var = SyncBatchNormFn.apply(x, self.weight, self.bias,
+                                                 self.eps, self.group)
+            self.update_running_stats(mean, var)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
                                        correction=0)
@@ -72,24 +155,12 @@ class BatchNorm2d(nn.BatchNorm2d):
                             0.0, self.eps)
 
     @torch.no_grad()
-    def _synced(self, x):
-        """Train-mode BN over the ranks' batches together (equal batches):
-        the mean of their means, then of their mean squared deviations
-        from it (two passes, no cancellation)."""
-        xf = x.to(torch.float32)
-        mean = xf.mean((0, 2, 3))
-        self.sync([mean])
-        var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
-        self.sync([var])
-        self.update_running_stats(mean, var)
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        y = xf * scale[:, None, None] + (self.bias - mean * scale)[:, None, None]
-        return y.to(x.dtype)
-
-    @torch.no_grad()
     def update_running_stats(self, mean: torch.Tensor, var: torch.Tensor):
         """Fold one batch's mean and biased variance into the running
-        stats (or record them, see the class note)."""
+        stats (or record them, see the class note); nothing while
+        ``remat`` recomputes a forward."""
+        if _RECOMPUTING[0]:
+            return
         if self.moments is not None:
             self.moments.append((mean.detach(), var.detach()))
             return
@@ -97,6 +168,20 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
         self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
         self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def batch_norm_group(model: nn.Module, group):
+    """Within the ``with``, every ``BatchNorm2d`` of ``model`` normalises
+    in train mode over ``group``'s ranks together (``BatchNorm2d.group``)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for bn in bns:
+        bn.group = group
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.group = None
 
 
 class ConvBNReLU(nn.Sequential):

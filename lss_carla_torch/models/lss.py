@@ -12,6 +12,13 @@ the plain ``splat_reference`` on a CPU tensor. ``fused_dw`` runs every
 MBConv block's depthwise conv and BN moments in one pass in train mode
 (``ops/mbconv.py``); it changes no parameter.
 
+``remat`` (the JAX model's field, ``lss.py:50-55``) rematerialises the two
+encoders in a train-mode forward with gradients: ``CamEncode`` and
+``BevEncode`` each run under ``layers.remat``, keep only their inputs, and
+run again in the backward. The splat between them is outside, as in JAX.
+It changes no result: the second run draws the same dropout masks and
+updates no BN running stat.
+
 ``compute_dtype`` ("float32" or "bfloat16", the JAX model's field) is the
 dtype of the convolutions, BN outputs, activations, the lift and the splat;
 parameters, BN running stats, the depth softmax, the BEV head and the
@@ -30,7 +37,7 @@ from torch import nn
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.models.bevencode import BevEncode
 from lss_carla_torch.models.camencode import CamEncode
-from lss_carla_torch.models.layers import init_weights
+from lss_carla_torch.models.layers import init_weights, remat
 from lss_carla_torch.ops.geometry import create_frustum, gen_dx_bx, get_geometry
 from lss_carla_torch.ops.image import normalize_uint8
 from lss_carla_torch.ops.splat import METHODS, voxel_pooling
@@ -43,7 +50,8 @@ class LiftSplatShoot(nn.Module):
     def __init__(self, grid_conf: GridConf, data_aug_conf: DataAugConf,
                  outC: int = 1, camC: int = 64, downsample: int = 16,
                  variant: str = "b0", splat_method: str = "scatter",
-                 fused_dw: bool = False, compute_dtype: str = "float32"):
+                 fused_dw: bool = False, compute_dtype: str = "float32",
+                 remat: bool = False):
         super().__init__()
         if splat_method not in METHODS:
             raise ValueError(f"unknown splat method: {splat_method}")
@@ -54,6 +62,7 @@ class LiftSplatShoot(nn.Module):
         self.outC, self.camC, self.downsample = outC, camC, downsample
         self.variant, self.splat_method = variant, splat_method
         self.fused_dw, self.compute_dtype = fused_dw, compute_dtype
+        self.remat = bool(remat)
         dtype = COMPUTE_DTYPES[compute_dtype]
         self.dx, self.bx, self.nx = gen_dx_bx(
             grid_conf.xbound, grid_conf.ybound, grid_conf.zbound)
@@ -73,7 +82,7 @@ class LiftSplatShoot(nn.Module):
                 "outC": self.outC, "camC": self.camC,
                 "downsample": self.downsample, "variant": self.variant,
                 "splat_method": self.splat_method, "fused_dw": self.fused_dw,
-                "compute_dtype": self.compute_dtype}
+                "compute_dtype": self.compute_dtype, "remat": self.remat}
 
     def get_geometry(self, rots, trans, intrins, post_rots, post_trans):
         return get_geometry(self.frustum, rots, trans, intrins, post_rots,
@@ -88,7 +97,7 @@ class LiftSplatShoot(nn.Module):
         B, N = x.shape[:2]
         x = x.reshape(B * N, *x.shape[2:])
         x = normalize_uint8(x) if x.dtype == torch.uint8 else x
-        lifted, _ = self.camencode(x)  # (BN, D, fH, fW, camC)
+        lifted, _ = self._encode(self.camencode, x)  # (BN, D, fH, fW, camC)
         return lifted.view(B, N, *lifted.shape[1:])
 
     def get_voxels(self, x, rots, trans, intrins, post_rots, post_trans):
@@ -101,7 +110,14 @@ class LiftSplatShoot(nn.Module):
         """(B, X, Y, nz*camC) pooled BEV -> (B, outC, X, Y) logits. Kept
         apart from the lift so camera-parallel modes can sum partial BEVs
         between ``get_voxels`` and the decode."""
-        return self.bevencode(bev).permute(0, 3, 1, 2)
+        return self._encode(self.bevencode, bev).permute(0, 3, 1, 2)
+
+    def _encode(self, encoder, x):
+        """``encoder(x)``, rematerialised where ``remat`` asks for it and
+        a backward will follow (train mode, gradients on)."""
+        if self.remat and self.training and torch.is_grad_enabled():
+            return remat(encoder, x)
+        return encoder(x)
 
     def forward(self, x, rots, trans, intrins, post_rots, post_trans):
         bev = self.get_voxels(x, rots, trans, intrins, post_rots, post_trans)

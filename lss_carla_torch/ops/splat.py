@@ -6,7 +6,8 @@ forward sums point features per voxel; the backward gathers the output
 cotangent at each point's voxel, with 0 at the sentinel, as the reference's
 ``QuickCumsum.backward`` does (reference ``src/tools.py:211-219``).
 
-Dispatch is by the tensor's device and nothing else: a CUDA tensor launches
+The sum is the ``lss::splat`` operator (``ops/library.py``), whose
+dispatch is by the tensor's device and nothing else: a CUDA tensor launches
 the hand-written kernel (``ops/splat_cuda.py``) or raises, a CPU tensor
 takes the plain version ``splat_reference``.
 """
@@ -17,7 +18,8 @@ from typing import Tuple
 
 import torch
 
-from lss_carla_torch.ops import splat_cuda
+from lss_carla_torch.ops import library
+from lss_carla_torch.ops.library import splat_reference  # noqa: F401
 
 # the JAX package's method names; all of them run the same splat here
 METHODS = ("scatter", "sorted", "pallas")
@@ -48,56 +50,10 @@ def voxel_indices(geom: torch.Tensor, dx, bx, nx) -> Tuple[torch.Tensor, torch.T
     return torch.where(valid, flat, sentinel), valid
 
 
-def splat_reference(pts: torch.Tensor, ids: torch.Tensor,
-                    num_slots: int) -> torch.Tensor:
-    """Plain version of the kernel: (B, P, C) + (B, P) ids -> (B, S, C).
-
-    ``index_add_`` into a (B*(S+1), C) f32 buffer, with every id outside
-    [0, S) sent to each item's sentinel row S, which is then dropped.
-    Returns the input dtype."""
-    B, P, C = pts.shape
-    S = int(num_slots)
-    ids = ids.to(torch.int64)
-    ids = torch.where((ids >= 0) & (ids < S), ids, torch.full_like(ids, S))
-    rows = ids + torch.arange(B, device=ids.device)[:, None] * (S + 1)
-    buf = torch.zeros((B * (S + 1), C), dtype=torch.float32, device=pts.device)
-    buf.index_add_(0, rows.reshape(-1), pts.reshape(B * P, C).to(torch.float32))
-    return buf.view(B, S + 1, C)[:, :S].to(pts.dtype)
-
-
-def _gather_cotangent(g: torch.Tensor, ids: torch.Tensor,
-                      num_slots: int) -> torch.Tensor:
-    """(B, S, C) cotangent -> (B, P, C): g at each point's id, 0 where the
-    id is the sentinel (or otherwise outside [0, S))."""
-    valid = (ids >= 0) & (ids < num_slots)
-    safe = torch.where(valid, ids, torch.zeros_like(ids)).to(torch.int64)
-    C = g.shape[-1]
-    d = torch.gather(g, 1, safe[..., None].expand(-1, -1, C))
-    return torch.where(valid[..., None], d, torch.zeros_like(d))
-
-
-class Splat(torch.autograd.Function):
-    """Sum per voxel; the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor. The backward is a gather in plain torch, as the JAX
-    package computes it in XLA outside its Pallas kernel."""
-
-    @staticmethod
-    def forward(ctx, pts, ids, num_slots):
-        ctx.save_for_backward(ids)
-        ctx.num_slots = int(num_slots)
-        if pts.is_cuda:
-            return splat_cuda.splat_forward(pts, ids, num_slots)
-        return splat_reference(pts, ids, num_slots)
-
-    @staticmethod
-    def backward(ctx, g):
-        (ids,) = ctx.saved_tensors
-        return _gather_cotangent(g, ids, ctx.num_slots), None, None
-
-
 def splat(pts: torch.Tensor, ids: torch.Tensor, num_slots: int) -> torch.Tensor:
-    """(B, P, C) points, (B, P) int32 ids -> (B, num_slots, C) sums."""
-    return Splat.apply(pts, ids, num_slots)
+    """(B, P, C) points, (B, P) int32 ids -> (B, num_slots, C) sums,
+    differentiable in ``pts``: the ``lss::splat`` operator."""
+    return library.splat(pts, ids, int(num_slots))
 
 
 def voxel_pooling(geom: torch.Tensor, feats: torch.Tensor, dx, bx, nx,

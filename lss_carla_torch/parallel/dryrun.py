@@ -3,23 +3,23 @@ counterpart of ``__graft_entry__.py::dryrun_multichip`` and
 ``scripts/multihost_dryrun.py``.
 
 ``dryrun_multichip(n)`` spawns ``n`` ranks on this host and runs one
-train step of each flavour at tiny shapes, data parallel over all ``n``
-and camera parallel over ``(n / 2, 2)``, and prints the losses. The
-BEV-grid flavour is not ported yet and raises naming its ``ROADMAP.md``
-item.
+train step of each flavour at tiny shapes, data parallel over all ``n``,
+camera parallel over ``(n / 2, 2)`` and BEV-grid parallel over ``(n / 2,
+2)``, and prints the losses.
 
 The command line plays a multi-host launch on one machine: it starts
 ``--nodes x --ranks_per_node`` processes with the environment a launcher
 (``torchrun``) gives each rank (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
 ``GROUP_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` on localhost), ranks
-numbered node by node, so the cam groups of ``--mesh camera`` (2 ranks,
-consecutive) stay inside a node and only the data all-reduce crosses
+numbered node by node, so the cam groups of ``--mesh camera`` and the
+grid groups of ``--mesh grid`` (2 ranks, consecutive) stay inside a node and only the data all-reduce crosses
 nodes, the deployment layout. Each rank loads its own rows, takes two
 steps, and the parent checks that every rank ends with the same loss and
 bit-equal parameters:
 
     python -m lss_carla_torch.parallel.dryrun --nodes 2 --ranks_per_node 2
     python -m lss_carla_torch.parallel.dryrun --mesh camera
+    python -m lss_carla_torch.parallel.dryrun --mesh grid
     python -m lss_carla_torch.parallel.dryrun --accum 2
     python -m lss_carla_torch.parallel.dryrun --cli
 
@@ -50,14 +50,31 @@ import torch.multiprocessing as mp
 from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.parallel.camera import make_camera_sharded_train_step
+from lss_carla_torch.parallel.grid import (make_grid_sharded_train_step,
+                                           shard_batch_grid)
 from lss_carla_torch.parallel.mesh import (init_process, make_mesh,
-                                           make_mesh_2d, shard_batch,
-                                           state_digest)
+                                           make_mesh_2d, make_mesh_grid,
+                                           shard_batch, state_digest)
 from lss_carla_torch.parallel.step import make_sharded_train_step
 from lss_carla_torch.training.state import create_train_state
 
-GRID_ITEM = "ROADMAP.md §A, BEV-grid parallel mode"
-FLAVOURS = ("data", "camera")
+FLAVOURS = ("data", "camera", "grid")
+
+
+def flavour_step(flavour: str, model, world: int):
+    """(mesh, train step, rows of a global batch) of one flavour over
+    ``world`` ranks: data over all, camera and grid over (world / 2, 2)."""
+    if flavour == "data":
+        mesh = make_mesh(world)
+        return mesh, make_sharded_train_step(model, mesh), \
+            lambda b: shard_batch(mesh, b)
+    if flavour == "camera":
+        mesh = make_mesh_2d(world // 2, 2)
+        return mesh, make_camera_sharded_train_step(model, mesh), \
+            lambda b: shard_batch(mesh, b)
+    mesh = make_mesh_grid(world // 2, 2)
+    return mesh, make_grid_sharded_train_step(model, mesh), \
+        lambda b: shard_batch_grid(mesh, b)
 
 
 def tiny_model(variant: str = "b0", seed: int = 0):
@@ -91,11 +108,9 @@ def _multichip_rank(rank: int, n: int, tmp: str, flavours, variant: str):
     try:
         batch = example_batch(n)
         for flavour in flavours:
-            mesh = make_mesh(n) if flavour == "data" else make_mesh_2d(n // 2, 2)
             model = tiny_model(variant)
-            step = (make_sharded_train_step if flavour == "data"
-                    else make_camera_sharded_train_step)(model, mesh)
-            metrics = step(create_train_state(model), shard_batch(mesh, batch))
+            _, step, rows = flavour_step(flavour, model, n)
+            metrics = step(create_train_state(model), rows(batch))
             losses[flavour] = float(metrics["loss"])
             if not np.isfinite(losses[flavour]):
                 raise RuntimeError(f"non-finite {flavour} loss {losses}")
@@ -108,17 +123,14 @@ def _multichip_rank(rank: int, n: int, tmp: str, flavours, variant: str):
 def dryrun_multichip(n_devices: int, flavours=FLAVOURS,
                      variant: str = "b0") -> dict:
     """One train step of each flavour over ``n_devices`` gloo ranks on the
-    CPU (``n_devices`` even, for the (n / 2, 2) camera mesh); returns and
-    prints {flavour: loss}."""
-    if "grid" in flavours:
-        raise NotImplementedError(f"the grid flavour is not ported to "
-                                  f"lss_carla_torch yet ({GRID_ITEM})")
+    CPU (``n_devices`` even, for the (n / 2, 2) camera and grid meshes);
+    returns and prints {flavour: loss}."""
     unknown = set(flavours) - set(FLAVOURS)
     if unknown:
         raise ValueError(f"unknown flavours {sorted(unknown)}")
     if n_devices < 2 or n_devices % 2:
         raise ValueError(f"dryrun_multichip needs an even n_devices >= 2 for "
-                         f"the camera mesh, got {n_devices}")
+                         f"the camera and grid meshes, got {n_devices}")
     tmp = tempfile.mkdtemp(prefix="lss_dryrun_")
     try:
         mp.start_processes(_multichip_rank,
@@ -138,18 +150,19 @@ def _steps_worker(mesh_kind: str, accum: int) -> None:
     """Two train steps on this rank's rows, then its loss and digest."""
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     init_process(rank, world, "env://", "cpu")
-    mesh = make_mesh_2d(world // 2, 2) if mesh_kind == "camera" else make_mesh()
     model = tiny_model()
     state = create_train_state(model)
-    if mesh_kind == "camera":
-        step = make_camera_sharded_train_step(model, mesh)
-    else:
+    if accum > 1:
+        mesh = make_mesh()
         step = make_sharded_train_step(model, mesh, accum_steps=accum)
+    else:
+        mesh, step, rows = flavour_step(mesh_kind, model, world)
     for i in range(2):
-        # every rank makes the same global batch; each keeps its rows
-        micro = [example_batch(mesh.n_data, seed=100 * i + a)
-                 for a in range(accum)]
-        batch = shard_batch(mesh, micro[0]) if accum == 1 else shard_batch(
+        # every rank makes the same global batch; each keeps its rows (the
+        # grid mode: one a rank)
+        B = world if mesh_kind == "grid" else mesh.n_data
+        micro = [example_batch(B, seed=100 * i + a) for a in range(accum)]
+        batch = rows(micro[0]) if accum == 1 else shard_batch(
             mesh, tuple(np.stack(parts) for parts in zip(*micro)), axis=1)
         loss = float(step(state, batch)["loss"])
         if not np.isfinite(loss):
@@ -212,12 +225,9 @@ def main(argv=None) -> int:
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--workdir", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
-    if args.mesh == "grid":
-        p.error(f"--mesh grid is not ported to lss_carla_torch yet "
-                f"({GRID_ITEM})")
     world = args.nodes * args.ranks_per_node
-    if args.mesh == "camera" and args.ranks_per_node % 2:
-        p.error("--mesh camera keeps its cam pairs inside a node: "
+    if args.mesh != "data" and args.ranks_per_node % 2:
+        p.error(f"--mesh {args.mesh} keeps its rank pairs inside a node: "
                 "--ranks_per_node must be even")
     if args.accum > 1 and args.mesh != "data":
         p.error("--accum takes --mesh data")

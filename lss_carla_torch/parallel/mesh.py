@@ -1,6 +1,6 @@
 """Process groups for the parallel modes: counterpart of
 ``lss_carla_tpu/parallel/mesh.py`` (and of ``make_mesh_2d`` in
-``parallel/camera.py``).
+``parallel/camera.py`` and ``make_mesh_grid`` in ``parallel/grid.py``).
 
 In JAX one process drives many devices, and a ``Mesh`` names their axes
 inside one program. In PyTorch every device is a rank and every rank is a
@@ -87,7 +87,10 @@ class Mesh:
     """This rank's place on an ``(n_data, n_cam)`` grid of ranks and the
     groups along its axes: ``data_group`` holds the ranks of this rank's
     cam column (those that differ in data rows only), ``cam_group`` those
-    of its data row, ``host_group`` all ranks on gloo."""
+    of its data row, ``host_group`` all ranks on gloo. A ``(data, grid)``
+    mesh (``make_mesh_grid``) is the same layout with its second axis
+    named ``grid``: ``n_grid``, ``grid_group`` and ``grid_index`` are
+    ``n_cam``, ``cam_group`` and ``cam_index``."""
     n_data: int
     n_cam: int
     rank: int
@@ -95,8 +98,21 @@ class Mesh:
     data_group: object
     cam_group: object
     host_group: object
+    axis: str = "cam"
 
     world = None  # every rank: the default group
+
+    @property
+    def n_grid(self) -> int:
+        return self.n_cam
+
+    @property
+    def grid_group(self):
+        return self.cam_group
+
+    @property
+    def grid_index(self) -> int:
+        return self.cam_index
 
     @property
     def size(self) -> int:
@@ -157,6 +173,15 @@ def make_mesh_2d(n_data: int, n_cam: int, device=None) -> Mesh:
         backend="gloo", timeout=PROCESS_TIMEOUT)
     return Mesh(n_data, n_cam, rank, torch.device(device), data_group,
                 cam_group, host_group)
+
+
+def make_mesh_grid(n_data: int, n_grid: int, device=None) -> Mesh:
+    """The ``(data, grid)`` mesh of the BEV-grid mode
+    (``parallel/grid.py``): ``make_mesh_2d``'s layout, ranks row-major
+    (``rank = d * n_grid + g``, as JAX's ``make_mesh_grid`` reshapes its
+    devices), the grid group a data row's ranks."""
+    return dataclasses.replace(make_mesh_2d(n_data, n_grid, device),
+                               axis="grid")
 
 
 def make_mesh(n_devices: Optional[int] = None, device=None) -> Mesh:

@@ -1,16 +1,16 @@
 #!/bin/bash
 # Stretch config through the PyTorch/CUDA port: configs/simbev_stretch.sh's
 # flags (400x400 BEV at 0.25 m, 4 classes, EfficientNet-B4, bf16, cosine
-# with warm-up).
-# Not ported: --n_devices (ROADMAP.md §A, parallel modes).
-# The port trains on one GPU, so the global batch of 32 is one device batch
-# here; on one card set BATCH_SIZE=4 and add --accum_steps 2 (and
+# with warm-up, 8 data-parallel ranks: one process a GPU, a global batch
+# of 32, 4 a GPU). Every flag is ported.
+# On one card: N_DEVICES=1 BATCH_SIZE=4, and add --accum_steps 2 (and
 # --ema_decay 0.999 --fused_dw for the recipe chip_smoke.py drives).
 
 DATAROOT="${DATAROOT:-/data/SimBEV}"
 
 EPOCHS=30
-BATCH_SIZE="${BATCH_SIZE:-32}"
+BATCH_SIZE="${BATCH_SIZE:-32}"     # global batch over N_DEVICES GPUs
+N_DEVICES="${N_DEVICES:-8}"
 NUM_WORKERS=16
 LEARNING_RATE=0.001
 
@@ -38,6 +38,7 @@ python -m lss_carla_torch.train \
     --label_mode multiclass \
     --variant b4 \
     --compute_dtype bfloat16 \
+    --n_devices $N_DEVICES \
     --lr_schedule cosine \
     --warmup_steps 500 \
     --logdir "$LOGDIR" \

@@ -1,32 +1,47 @@
-"""Serving: export a model to one artifact file and load it back as a callable.
+"""Serving: export a model's eval forward to one artifact file and load it
+back as a callable, without the model code.
 
-Counterpart of ``lss_carla_tpu/serving.py``. The artifact is a single
-``torch.save`` file holding the model config, its state dict, the input
-signature (bsz, ncams, image dtype) and the int8 settings. ``load_predict``
-rebuilds the model in eval mode on ``device`` and returns ``callable(*6
-inputs) -> logits``. Loading still needs this package's model code (unlike
-``jax.export``). An artifact exported with ``quantize=True`` keeps the
-float weights; ``load_predict`` swaps its eligible convs for int8 ones
-(``ops/quant.py::quantize_model``) after loading them.
+Counterpart of ``lss_carla_tpu/serving.py``, whose ``jax.export`` artifact
+is StableHLO with the parameters baked in. Here the artifact is a
+``torch.export`` ``ExportedProgram`` (``torch.export.save``): the eval
+forward as an ATen graph, weights baked in, with the input signature
+(bsz, ncams, image dtype) and the export settings in a JSON file inside
+the same archive (``lss_predict.json``). ``--quantize`` and the compute
+dtype are applied before the export, so the program holds the int8 convs
+(``ops/quant.py``) or the bf16 casts itself.
+
+The two kernels appear in the graph as the ``lss::splat`` and
+``lss::dw_conv_stats`` operators (``ops/library.py``). ``load_predict``
+imports that module and nothing of ``models/``: a process that loads an
+artifact runs the kernel (or, on the CPU, its plain version) without the
+model's code.
+
+The program is traced on the device the model is on, as JAX's export is
+platform-checked (``lss_carla_tpu/serving.py:6-8``). An artifact loaded
+on another device is moved there with
+``torch.export.passes.move_to_device_pass``; ``Predictor.moved_from``
+records the device it was exported on, ``None`` when it was not moved.
 
     from lss_carla_torch.serving import export_predict, load_predict
-    export_predict(model, "/models/lss.pt", bsz=1)
-    predict = load_predict("/models/lss.pt")       # device="cuda"
+    export_predict(model, "/models/lss.pt2", bsz=1)
+    predict = load_predict("/models/lss.pt2")       # device="cuda"
     logits = predict(imgs, rots, trans, intrins, post_rots, post_trans)
 """
 
 from __future__ import annotations
 
+import json
+import zipfile
 from typing import Optional
 
 import numpy as np
 import torch
 
-from lss_carla_torch.models.lss import compile_model
-from lss_carla_torch.ops.quant import quantize_model
+from lss_carla_torch.ops import library  # noqa: F401  (registers lss::*)
 from lss_carla_torch.utils.backend import resolve_device
 
-FORMAT = "lss_carla_torch.predict/1"
+FORMAT = "lss_carla_torch.predict/2"
+META = "lss_predict.json"  # the archive's extra file
 INPUT_NAMES = ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")
 
 
@@ -57,31 +72,49 @@ def example_args(signature: dict):
 def export_predict(model, path: str, bsz: int = 1, uint8_images: bool = False,
                    ncams: Optional[int] = None, quantize: bool = False,
                    quant_min_channels: int = 64) -> None:
-    """Write ``model`` (config + weights) and its input signature to ``path``.
+    """Trace ``model``'s eval forward on its device and write the program,
+    weights baked in, with its input signature to ``path``.
 
     uint8_images: a uint8 image signature, normalised on the device.
     ncams: serving camera count; by default the full rig, max(Ncams, 6)
-    (Ncams is the train-time camera-dropout count). quantize: serve the
-    convs that ``quantize_model(min_channels=quant_min_channels)`` swaps in
-    int8 (``ops/quant.py``)."""
+    (Ncams is the train-time camera-dropout count). quantize: the program
+    runs the convs that ``quantize_model(min_channels=quant_min_channels)``
+    swaps in int8 (``ops/quant.py``). ``model`` is left as it was."""
+    from lss_carla_torch.ops.quant import quantize_model
     if ncams is None:
         ncams = max(model.data_aug_conf.Ncams, 6)
     signature = {"bsz": int(bsz), "ncams": int(ncams),
                  "final_dim": list(model.data_aug_conf.final_dim),
                  "img_dtype": "uint8" if uint8_images else "float32"}
-    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    torch.save({"format": FORMAT, "config": model.config(),
-                "state_dict": state, "signature": signature,
-                "quantize": bool(quantize),
-                "quant_min_channels": int(quant_min_channels)}, path)
+    dev = next(model.parameters()).device
+    training = model.training
+    model.eval()
+    try:
+        net = quantize_model(model, quant_min_channels)[0] if quantize \
+            else model
+        args = tuple(torch.as_tensor(a, device=dev)
+                     for a in example_args(signature))
+        with torch.no_grad():
+            program = torch.export.export(net, args, strict=False)
+    finally:
+        model.train(training)
+    meta = {"format": FORMAT, "signature": signature, "device": str(dev),
+            "config": model.config(), "quantize": bool(quantize),
+            "quant_min_channels": int(quant_min_channels)}
+    torch.export.save(program, path, extra_files={META: json.dumps(meta)})
 
 
 class Predictor:
     """A loaded artifact: checks inputs against the signature, runs the
-    model on its device, returns logits (B, outC, X, Y) as a tensor there."""
+    program on its device, returns logits (B, outC, X, Y) as a tensor
+    there. ``meta`` is the artifact's settings; ``moved_from`` the device
+    it was exported on where that is not ``device``, else None."""
 
-    def __init__(self, model, signature: dict, device: torch.device):
-        self.model, self.signature, self.device = model, signature, device
+    def __init__(self, program, signature: dict, device: torch.device,
+                 meta: Optional[dict] = None,
+                 moved_from: Optional[str] = None):
+        self.program, self.signature, self.device = program, signature, device
+        self.meta, self.moved_from = meta or {}, moved_from
         self._expected = input_shapes(signature)
 
     def __call__(self, *args):
@@ -97,32 +130,45 @@ class Predictor:
                     f"takes {shape} {dtype}")
             tensors.append(t.to(self.device, non_blocking=True))
         with torch.inference_mode():
-            return self.model(*tensors)
+            return self.program(*tensors)
 
 
-def _read(path: str) -> dict:
-    blob = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-    if not isinstance(blob, dict) or blob.get("format") != FORMAT:
+def read_meta(path: str) -> dict:
+    """An artifact's settings (format, signature, device, config, int8),
+    read from its archive without loading the program."""
+    try:
+        with zipfile.ZipFile(path) as z:
+            names = [n for n in z.namelist()
+                     if n.endswith(f"/extra/{META}")]
+            meta = json.loads(z.read(names[0])) if names else None
+    except zipfile.BadZipFile:
+        meta = None
+    if not isinstance(meta, dict) or meta.get("format") != FORMAT:
         raise ValueError(f"{path}: not a {FORMAT} artifact")
-    return blob
+    return meta
 
 
 def read_signature(path: str) -> dict:
     """The input signature an artifact was exported with."""
-    return _read(path)["signature"]
+    return read_meta(path)["signature"]
 
 
 def load_predict(path: str, device="cuda") -> Predictor:
-    """Load an artifact onto ``device`` (cuda unless "cpu" is asked for),
-    its eligible convs in int8 if it was exported with ``quantize``."""
+    """Load an artifact onto ``device`` (cuda unless "cpu" is asked for):
+    the exported program, moved there if it was exported on another
+    device."""
     dev = resolve_device(device)
-    blob = _read(path)
-    model = compile_model(device="cpu", **blob["config"])
-    model.load_state_dict(blob["state_dict"])
-    model.eval()
-    if blob.get("quantize", False):
-        model, _ = quantize_model(model, blob["quant_min_channels"])
-    return Predictor(model.to(dev), blob["signature"], dev)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    meta = read_meta(path)
+    program = torch.export.load(path)
+    moved_from = None
+    if torch.device(meta["device"]) != dev:
+        from torch.export.passes import move_to_device_pass
+        program = move_to_device_pass(program, dev)
+        moved_from = meta["device"]
+    return Predictor(program.module(), meta["signature"], dev, meta,
+                     moved_from)
 
 
 def _main(argv=None):
@@ -130,14 +176,15 @@ def _main(argv=None):
     (``python -m lss_carla_torch.server`` serves it).
 
         python -m lss_carla_torch.serving --checkpoint runs/x/ckpts --best \\
-            --out /models/lss.pt [--ema] [--compute_dtype bfloat16] \\
+            --out /models/lss.pt2 [--device cpu] [--ema] [--compute_dtype bfloat16] \\
             [--quantize] [--uint8] [--bsz 8] [--variant b4|resnet18]
 
     ``--checkpoint`` is a ``.pt`` file or a run's checkpoint directory (its
     newest checkpoint, or ``model_best.pt`` with ``--best``). ``--ema``
     exports the checkpoint's ``ema_state_dict`` where it has one, else the
     raw weights. ``--compute_dtype bfloat16`` serves in bf16. ``--quantize``
-    serves the eligible convs in int8 (``ops/quant.py``).
+    serves the eligible convs in int8 (``ops/quant.py``). ``--device``
+    (cuda unless cpu is asked for) is where the program is traced.
     """
     import argparse
     import os
@@ -158,7 +205,7 @@ def _main(argv=None):
                    choices=("float32", "bfloat16"))
     p.add_argument("--quantize", action="store_true",
                    help="int8 convs where min(cin, cout) >= 64 "
-                        "(ops/quant.py); the artifact keeps float weights")
+                        "(ops/quant.py), baked into the program")
     p.add_argument("--uint8", action="store_true",
                    help="uint8 image inputs (normalised on the device)")
     p.add_argument("--bsz", type=int, default=1)
@@ -179,9 +226,13 @@ def _main(argv=None):
                    default=(-10.0, 10.0, 20.0), metavar=("MIN", "MAX", "STEP"))
     p.add_argument("--dbound", type=float, nargs=3,
                    default=(4.0, 45.0, 1.0), metavar=("MIN", "MAX", "STEP"))
+    p.add_argument("--device", default="cuda",
+                   help="the device the program is traced on and serves "
+                        "on without a move (cuda, or cpu)")
     args = p.parse_args(argv)
 
     from lss_carla_torch.configs import DataAugConf, GridConf
+    from lss_carla_torch.models.lss import compile_model
     from lss_carla_torch.utils.checkpoint import BEST, load_checkpoint
     from lss_carla_torch.utils.convert import reference_state_dict
 
@@ -189,7 +240,7 @@ def _main(argv=None):
                     zbound=tuple(args.zbound), dbound=tuple(args.dbound))
     aug = DataAugConf(H=args.H, W=args.W, final_dim=tuple(args.final_dim))
     model = compile_model(grid, aug, outC=args.outC, variant=args.variant,
-                          compute_dtype=args.compute_dtype, device="cpu")
+                          compute_dtype=args.compute_dtype, device=args.device)
     path = args.checkpoint
     if args.best:
         if not os.path.isdir(path):

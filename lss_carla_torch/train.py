@@ -33,10 +33,11 @@ or one rank of a multi-host run under ``torchrun`` (``--multihost``):
     torchrun --nnodes 2 --nproc_per_node 8 --rdzv_backend c10d \
         --rdzv_endpoint host0:29400 -m lss_carla_torch.train \
         --dataroot /data/SimBEV --multihost --bsz 64
+    python -m lss_carla_torch.train --dataroot /data/SimBEV --n_devices 4 \
+        --grid_devices 2 --bsz 8 --xbound -50 50 0.25 --ybound -50 50 0.25
 
 The JAX CLI's other flags are accepted only to say where they wait in
-``ROADMAP.md``: passing one exits with that message (``--grid_devices``
-above 1 among them).
+``ROADMAP.md``: passing one exits with that message.
 """
 
 from __future__ import annotations
@@ -46,10 +47,8 @@ import sys
 
 from lss_carla_torch.training.loop import UNPORTED, check_pretrained_trunk, train
 
-# train_simbev.py flags that wait in ROADMAP.md and have no flag of their
-# own here (--grid_devices has one, and only its "off" value 1 passes)
-_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()
-                   if k != "grid_devices"}
+# train_simbev.py flags that wait in ROADMAP.md
+_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -147,7 +146,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="camera-parallel ranks a data row: the cameras "
                         "split over them; n_devices / cam_devices data ranks")
     p.add_argument("--grid_devices", type=int, default=1,
-                   help="BEV-grid parallel ranks (not ported yet: only 1)")
+                   help="BEV-grid parallel ranks a data row: the grid's X "
+                        "axis splits over them; n_devices / grid_devices "
+                        "data ranks (parallel/grid.py)")
     p.add_argument("--multihost", action="store_true",
                    help="one rank of a multi-host run: join the process "
                         "group of the launcher's environment (torchrun); "
@@ -202,8 +203,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_pretrained_trunk(args.pretrained_trunk, args.variant)
     given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
-    if args.grid_devices != 1:
-        given.append("grid_devices")
     if given:
         parser.error("not ported to lss_carla_torch yet: " + "; ".join(
             f"--{k} (ROADMAP.md {UNPORTED[k][1]})" for k in given))

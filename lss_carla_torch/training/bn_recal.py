@@ -17,10 +17,13 @@ drop-connect are live in these forwards, as in JAX.
 
 With several ranks each holds its own rows of every batch; JAX's
 recalibration runs over the global (sharded) batch, whose every BN
-normalises with the global batch's moments. ``mean_over_ranks`` makes the
-forwards do that: every BN combines the ranks' moments as sync-BN does
-(``models/layers.py::BatchNorm2d.sync``), so each recorded moment is the
-global batch's and every rank ends with the same stats.
+normalises with the global batch's moments. ``group`` makes the forwards
+do that: every BN combines the ranks' moments as sync-BN does
+(``models/layers.py::BatchNorm2d.group``), so each recorded moment is the
+global batch's and every rank ends with the same stats. ``forward``
+replaces the model's forward where the ranks split a batch otherwise: the
+BEV-grid mode recalibrates through its own forward
+(``parallel/grid.py``), whose BNs take the global batch's moments too.
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ from lss_carla_torch.models.layers import BatchNorm2d
 
 @torch.no_grad()
 def recalibrate_bn(model: nn.Module, batches: Iterable,
-                   mean_over_ranks: Optional[Callable] = None) -> int:
+                   group=None, forward: Optional[Callable] = None) -> int:
     """Set every BN's running mean and variance of ``model`` to the mean,
     over ``batches``, of its train-mode batch moments, in place.
 
@@ -43,26 +46,26 @@ def recalibrate_bn(model: nn.Module, batches: Iterable,
     (imgs, rots, trans, intrins, post_rots, post_trans), on the model's
     device. Returns the number of batches; with none, the running stats
     are left as they are (the JAX trainer then validates with the EMA'd
-    stats). The model is left in eval mode. ``mean_over_ranks`` (a
-    callable replacing a list of tensors, in place, by their means over
-    the ranks): every rank passes its rows of the same number of equal
-    batches, and gets the global batches' moments."""
+    stats). The model is left in eval mode. ``group`` (a process group):
+    every rank passes its rows of the same number of batches, and gets the
+    global batches' moments. ``forward(*inputs)`` runs a batch in place of
+    ``model(*inputs)``."""
     bns = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
     sums = None
     n = 0
     try:
         for bn in bns:
-            bn.moments, bn.sync = [], mean_over_ranks
+            bn.moments, bn.group = [], group
         model.train()
         for batch in batches:
-            model(*batch[:6])
+            (forward or model)(*batch[:6])
             n += 1
         if n:
             sums = [torch.stack([torch.stack(m) for m in bn.moments]).sum(0)
                     for bn in bns]
     finally:
         for bn in bns:
-            bn.moments = bn.sync = None
+            bn.moments = bn.group = None
         model.eval()
     if n:
         for bn, s in zip(bns, sums):

@@ -34,7 +34,10 @@ spawns nothing and joins the launcher's group (``torchrun``'s ``RANK``,
 ``jax.distributed.initialize()``. ``bsz`` is the global batch: each data
 rank loads its shard (``bsz / n_data`` rows); with ``cam_devices`` > 1 the
 cam ranks of a data row load the same rows and each lifts its own
-cameras. Rank 0 logs (the others a ``NullLogger``), profiles and writes
+cameras; with ``grid_devices`` > 1 (the BEV-grid mode, ``parallel/
+grid.py``) every rank loads and lifts its own ``bsz / n_devices`` rows and
+decodes its X slab of its data row's BEV, and the EMA's BN recalibration
+runs through the grid forward. Rank 0 logs (the others a ``NullLogger``), profiles and writes
 the checkpoints, with a barrier after each save; every rank loads the
 same file on resume. A signal on any rank stops every rank at the same
 step: each step ends with a MAX all-reduce of the ranks' signal flags on
@@ -69,6 +72,7 @@ from lss_carla_torch.data.loader import (compile_data, prefetch_to_device,
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.ops import mbconv_cuda, splat_cuda
 from lss_carla_torch.parallel import camera as pcamera
+from lss_carla_torch.parallel import grid as pgrid
 from lss_carla_torch.parallel import mesh as pmesh
 from lss_carla_torch.parallel import step as pstep
 from lss_carla_torch.training.bn_recal import recalibrate_bn
@@ -86,7 +90,6 @@ from lss_carla_torch.utils.logging import MetricLogger, NullLogger
 # item by its title: the items' numbers change as the queue moves)
 UNPORTED = {
     "pretrained_trunk": ((None,), "§A, --pretrained_trunk"),
-    "grid_devices": ((1,), "§A, BEV-grid parallel mode"),
 }
 
 
@@ -114,13 +117,15 @@ def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
 
 def parallel_plan(n_devices, multihost: bool, cam_devices: int,
                   accum_steps: int, fused_dw: bool, ncams: int, bsz: int,
-                  dev: torch.device):
+                  dev: torch.device, grid_devices: int = 1, nx0: int = 0):
     """The JAX trainer's checks of the parallel keywords, in meaning
     (``lss_carla_tpu/training/loop.py:213-262``): returns (ranks, data
-    ranks, cam ranks). ``n_devices`` None means 1, or the launcher's world
-    size with ``multihost``; it is clamped to the devices there are (GPUs
-    on CUDA, CPU cores on the CPU, the world size under a launcher)."""
+    ranks, cam ranks, grid ranks). ``n_devices`` None means 1, or the
+    launcher's world size with ``multihost``; it is clamped to the devices
+    there are (GPUs on CUDA, CPU cores on the CPU, the world size under a
+    launcher). ``nx0`` is the BEV grid's X size."""
     cam_devices = max(1, int(cam_devices))
+    grid_devices = max(1, int(grid_devices))
     if multihost:
         count = (dist.get_world_size() if dist.is_initialized()
                  else pmesh.launcher_env()["world_size"])
@@ -132,13 +137,16 @@ def parallel_plan(n_devices, multihost: bool, cam_devices: int,
         count = os.cpu_count() or 1
     n = count if (n_devices is None and multihost) else (n_devices or 1)
     n = min(int(n), count)
-    if accum_steps > 1 and cam_devices > 1:
+    if cam_devices > 1 and grid_devices > 1:
+        raise ValueError("cam_devices and grid_devices are alternative "
+                         "model-parallel axes: use at most one")
+    if accum_steps > 1 and (cam_devices > 1 or grid_devices > 1):
         raise ValueError("accum_steps > 1 is not supported together with "
-                         "cam_devices > 1 (accumulate on the data axis or "
-                         "shard the cameras, not both)")
-    if fused_dw and cam_devices > 1:
+                         "cam_devices/grid_devices > 1 (accumulate on the "
+                         "data axis or shard the model, not both)")
+    if fused_dw and (cam_devices > 1 or grid_devices > 1):
         raise ValueError("--fused_dw composes with data parallelism only; "
-                         "drop it for cam_devices > 1")
+                         "drop it for cam_devices/grid_devices > 1")
     if cam_devices > 1:
         if n % cam_devices:
             raise ValueError(f"n_devices={n} must be divisible by "
@@ -152,14 +160,16 @@ def parallel_plan(n_devices, multihost: bool, cam_devices: int,
                 f"cam_devices > 1 trains on every camera (ncams="
                 f"{len(CAMERA_ORDER)}): each cam rank would draw its own "
                 f"subset of {ncams}")
-    n_data = n // cam_devices
+    if grid_devices > 1:
+        pgrid.check_plan(n, grid_devices, nx0, bsz)
+    n_data = n // (cam_devices * grid_devices)
     if n > 1 and bsz % n_data:
         raise ValueError(f"bsz={bsz} must be divisible by the data-rank count "
                          f"{n_data} (n_devices / cam_devices)")
     if multihost and n <= 1:
         raise ValueError("--multihost needs more than one rank "
                          "(n_devices > 1)")
-    return n, n_data, cam_devices
+    return n, n_data, cam_devices, grid_devices
 
 
 def rank_device(dev: torch.device, local: int) -> torch.device:
@@ -375,6 +385,10 @@ def train(
                                       # spawning the ranks
     cam_devices: int = 1,             # camera-parallel ranks a data row:
                                       # n_devices / cam_devices data ranks
+    grid_devices: int = 1,            # BEV-grid parallel ranks a data row:
+                                      # the grid's X axis split over them
+                                      # (parallel/grid.py); n_devices /
+                                      # grid_devices data ranks
     device="cuda",
     **unported,
 ):
@@ -413,9 +427,9 @@ def train(
             raise ValueError("extrinsic_noise is not implemented for the "
                              "nuScenes loader")
     dev = resolve_device(device)
-    n_ranks, n_data, cam_devices = parallel_plan(
+    n_ranks, n_data, cam_devices, grid_devices = parallel_plan(
         n_devices, multihost, cam_devices, accum_steps, fused_dw, ncams, bsz,
-        dev)
+        dev, grid_devices, int(round((xbound[1] - xbound[0]) / xbound[2])))
     mesh = None
     if n_ranks > 1:
         if not dist.is_initialized():
@@ -428,7 +442,9 @@ def train(
             raise ValueError(f"n_devices={n_ranks}, the process group has "
                              f"{dist.get_world_size()} ranks")
         dev = rank_device(dev, pmesh.local_rank())
-        mesh = pmesh.make_mesh_2d(n_data, cam_devices, dev)
+        mesh = (pmesh.make_mesh_grid(n_data, grid_devices, dev)
+                if grid_devices > 1
+                else pmesh.make_mesh_2d(n_data, cam_devices, dev))
         if dev.type == "cuda":
             # one nvcc a kernel: rank 0 builds, the others then load it
             if mesh.is_primary:
@@ -464,8 +480,10 @@ def train(
     print(f"  logdir: {logdir}")
     print(f"  device: {dev}  batch size: {bsz} x {accum_steps} microbatches")
     if mesh is not None:
-        print(f"  ranks: {mesh.size} = {mesh.n_data} data x {mesh.n_cam} cam "
-              f"({dist.get_backend()}); {bsz // mesh.n_data} rows a data rank"
+        print(f"  ranks: {mesh.size} = {mesh.n_data} data x {mesh.n_cam} "
+              f"{mesh.axis} ({dist.get_backend()}); {bsz // mesh.n_data} rows "
+              "a data rank" + (f", {bsz // mesh.size} lifted a rank"
+                               if grid_devices > 1 else "")
               + ("; multihost" if multihost else ""))
     print(f"  lr: {lr}  epochs: {nepochs}  cams: {ncams}")
     print(f"  image: {H}x{W} -> {tuple(final_dim)}")
@@ -474,9 +492,14 @@ def train(
     print("=" * 80)
 
     # each data rank loads its shard of every global batch; the cam ranks
-    # of a data row load the same rows
-    shards = {"shard_index": 0 if mesh is None else mesh.data_index,
-              "num_shards": n_data, "bsz": bsz // n_data}
+    # of a data row load the same rows; in the grid mode every rank loads
+    # the rows it lifts
+    if grid_devices > 1:
+        shards = {"shard_index": mesh.rank, "num_shards": n_ranks,
+                  "bsz": bsz // n_ranks}
+    else:
+        shards = {"shard_index": 0 if mesh is None else mesh.data_index,
+                  "num_shards": n_data, "bsz": bsz // n_data}
     if dataset == "nuscenes":
         from lss_carla_torch.data.nuscenes import compile_data_nuscenes
         trainloader, valloader = compile_data_nuscenes(
@@ -535,6 +558,15 @@ def train(
 
         def predict_step(m):
             return make_predict_step(m, device=dev)
+    elif grid_devices > 1:
+        train_fn = pgrid.make_grid_sharded_train_step(
+            model, mesh, pos_weight, ema_decay=ema_decay, seed=seed)
+
+        def eval_step(m):
+            return pgrid.make_grid_sharded_eval_step(m, mesh, pos_weight)
+
+        def predict_step(m):
+            return pgrid.make_grid_sharded_predict(m, mesh)
     elif mesh.n_cam > 1:
         train_fn = pcamera.make_camera_sharded_train_step(
             model, mesh, pos_weight, ema_decay=ema_decay, seed=seed)
@@ -561,12 +593,15 @@ def train(
     # with several ranks, each batch's moments are the global batch's
     recal_window = (collections.deque(maxlen=ema_bn_recal)
                     if ema_decay and ema_bn_recal > 0 else None)
-    mean_over_ranks = None if mesh is None else (
-        lambda ts: pstep.all_reduce_packed([ts], [1.0 / mesh.size], mesh.world))
+    # with several ranks every BN of the recalibration takes the global
+    # batch's moments; the grid mode's through its own forward
+    recal_group = None if mesh is None else dist.group.WORLD
+    recal_forward = (pgrid.grid_forward(state.ema_model, mesh, seed)
+                     if grid_devices > 1 and ema_decay else None)
     # figures: the trained model for the train figure, the validated one
     # (the EMA with ema_decay) for the val figure, on val batch 0 fetched
-    # once. Rank 0 renders them; the camera-parallel prediction is a
-    # collective, which every rank runs on its own rows
+    # once. Rank 0 renders them; the camera- and grid-parallel predictions
+    # are collectives, which every rank runs on its own rows
     if multihost and viz_step:
         print("multihost: figures off (as in the JAX trainer)")
         viz_step = 0
@@ -640,7 +675,8 @@ def train(
             "config": {"bsz": bsz, "lr": lr, "grid_conf": grid_conf.to_dict(),
                        "data_aug_conf": data_aug_conf.to_dict(),
                        "variant": variant, "compute_dtype": compute_dtype,
-                       "n_devices": n_ranks, "cam_devices": cam_devices}})
+                       "n_devices": n_ranks, "cam_devices": cam_devices,
+                       "grid_devices": grid_devices}})
     watchdog = None
     if watchdog_secs:
         watchdog = StallWatchdog(watchdog_secs,
@@ -726,7 +762,7 @@ def train(
                     if ema_decay:
                         if recal_window:
                             recalibrate_bn(state.ema_model, recal_window,
-                                           mean_over_ranks)
+                                           recal_group, recal_forward)
                         val_info = get_val_info(ema_eval_fn, state, valloader,
                                                 dev, heartbeat)
                         raw_info = get_val_info(eval_fn, state, valloader,

@@ -59,7 +59,7 @@ def test_recipe_is_the_config_through_the_port(name):
     theirs_tokens, theirs, _ = sh_command(REPO / "configs" / f"{name}.sh")
     assert tokens[:3] == ["python", "-m", "lss_carla_torch.train"]
     assert theirs_tokens[:2] == ["python", "train_simbev.py"]
-    assert missing == ({"--n_devices"} if name == "simbev_stretch" else set())
+    assert missing == set()
     assert ours == {k: v for k, v in theirs.items() if k not in missing}
     argv = [t for k, v in ours.items() for t in (k, *v)]
     args = build_parser().parse_args(argv)  # every flag the port has

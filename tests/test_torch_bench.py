@@ -24,13 +24,14 @@ KEYS = {"metric", "value", "unit", "vs_baseline"}
 
 
 def tiny_build(bsz, splat_method="scatter", dtype="float32", variant="b0",
-               fused_dw=False, device="cuda", accum=1):
+               fused_dw=False, device="cuda", accum=1, remat=False):
     """``bench.build``'s contract at the tests' tiny config."""
     grid = GridConf(xbound=(-40.0, 40.0, 5.0), ybound=(-40.0, 40.0, 5.0),
                     dbound=(4.0, 36.0, 8.0))
     model = compile_model(grid, DataAugConf(H=64, W=128, final_dim=(32, 64)),
                           variant="slim" if variant == "b0" else variant,
-                          compute_dtype=dtype, fused_dw=fused_dw, device=device)
+                          compute_dtype=dtype, fused_dw=fused_dw, remat=remat,
+                          device=device)
     gen = torch.Generator().manual_seed(0)
     intrins = torch.tensor([[60.0, 0, 32], [0, 60, 16], [0, 0, 1]])
     eye = torch.eye(3).repeat(bsz, 6, 1, 1)
@@ -75,9 +76,17 @@ def _check(line, name, unit="ms", baseline=None):
     assert set(line) == KEYS and line["metric"] == name and line["unit"] == unit
     v = line["value"]
     assert v > 0 and round(v, 3) == v
-    if baseline is not None:  # both rounded to 3 decimals from the same ms
+    if baseline is not None:
+        # value = round(ms, 3) and vs_baseline = round(baseline / ms, 3) of
+        # the unrounded ms (bench.py's lines). With |ms - value| <= 5e-4:
+        # |vs_baseline - baseline / value|
+        #   <= |vs_baseline - baseline / ms| + |baseline / ms - baseline / value|
+        #   <= 5e-4 + baseline * |value - ms| / (ms * value)
+        #   <= 5e-4 + baseline * 5e-4 / (value * (value - 5e-4)),
+        # ~ 5e-4 + baseline * 5e-4 / value**2; plus float rounding
         ratio = baseline / v
-        assert abs(line["vs_baseline"] - ratio) <= 5e-4 + 1e-6 * ratio
+        bound = 5e-4 + baseline * 5e-4 / (v * (v - 5e-4))
+        assert abs(line["vs_baseline"] - ratio) <= bound + 1e-9 * ratio
 
 
 def test_mode_all_prints_bench_py_lines(run):
@@ -133,9 +142,14 @@ def test_refuses_what_bench_py_refuses(capsys, argv, message):
     assert message in capsys.readouterr().err
 
 
-def test_remat_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="§A, rematerialisation"):
-        bench.main(["--device", "cpu", "--remat"])
+def test_remat_step_keeps_its_metric_name(run):
+    """``--remat`` reaches ``compile_model(remat=True)`` and, as in
+    ``bench.py``, keeps the metric's name."""
+    _, metrics, info = run("--mode", "step", "--remat")
+    assert [m["metric"] for m in metrics] == ["train_step_ms_bsz2_bfloat16"]
+    _check(metrics[0], "train_step_ms_bsz2_bfloat16",
+           baseline=bench.BASELINE_STEP_MS)
+    assert len(info) == 1 and ", remat," in info[0]
 
 
 def test_flags_are_bench_py_s_less_compiler_option():

@@ -27,8 +27,7 @@ from lss_carla_torch.configs import DataAugConf, GridConf
 from lss_carla_torch.models.efficientnet import MBConvBlock
 from lss_carla_torch.models.layers import BatchNorm2d, Conv2d
 from lss_carla_torch.models.lss import compile_model
-from lss_carla_torch.ops import mbconv as M
-from lss_carla_torch.ops import splat as S
+from lss_carla_torch.ops import library
 from lss_carla_torch.utils import convert as C
 
 from test_torch_convert import randomize_variables, tiny_confs
@@ -70,13 +69,13 @@ def test_dtype_at_each_boundary(monkeypatch, fused_dw):
         if isinstance(m, (Conv2d, BatchNorm2d, torch.nn.Conv2d)):
             m.register_forward_hook(record(name))
     kernels = {}
-    for mod, fn in ((S, "splat_reference"), (M, "dw_conv_stats_reference")):
-        real = getattr(mod, fn)
+    for fn in ("splat_reference", "dw_conv_stats_reference"):
+        real = getattr(library, fn)  # the ops' CPU implementations
 
         def spy(x, *a, _real=real, _fn=fn):
             kernels.setdefault(_fn, set()).add(x.dtype)
             return _real(x, *a)
-        monkeypatch.setattr(mod, fn, spy)
+        monkeypatch.setattr(library, fn, spy)
     softmax_in = []
     real_softmax = torch.softmax
     monkeypatch.setattr(torch, "softmax", lambda x, dim: (

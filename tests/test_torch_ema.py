@@ -323,7 +323,7 @@ def test_train_stretch_recipe_tiny(fixture_root, tmp_path, few_threads):
 
     # the export CLI: the run's best checkpoint, EMA weights, served in bf16
     from lss_carla_torch.serving import _main as export_cli
-    from lss_carla_torch.serving import example_args, load_predict
+    from lss_carla_torch.serving import example_args, load_predict, read_meta
     best = load_checkpoint(os.path.join(logdir, "ckpts", "model_best.pt"))
     geometry = ["--H", "64", "--W", "128", "--final_dim", "32", "64",
                 "--xbound", "-50", "50", "6.25", "--ybound", "-50", "50", "6.25",
@@ -332,13 +332,15 @@ def test_train_stretch_recipe_tiny(fixture_root, tmp_path, few_threads):
         art = str(tmp_path / f"art_{key}.pt")
         export_cli(["--checkpoint", os.path.join(logdir, "ckpts"), "--best",
                     "--compute_dtype", "bfloat16", "--uint8", "--out", art,
-                    *geometry] + (["--ema"] if ema else []))
-        blob = torch.load(art, map_location="cpu", weights_only=True)
-        assert blob["config"]["compute_dtype"] == "bfloat16"
+                    "--device", "cpu", *geometry] + (["--ema"] if ema else []))
+        meta = read_meta(art)
+        assert meta["config"]["compute_dtype"] == "bfloat16"
+        baked = torch.export.load(art).state_dict
         for k, v in best[key].items():
-            assert torch.equal(blob["state_dict"][k], v), (key, k)
+            if k in baked or not k.endswith("num_batches_tracked"):
+                assert torch.equal(baked[k], v), (key, k)
     predict = load_predict(art, device="cpu")
-    logits = predict(*example_args(blob["signature"]))
+    logits = predict(*example_args(meta["signature"]))
     assert logits.dtype == torch.float32 and logits.shape == (1, 4, 16, 16)
 
 

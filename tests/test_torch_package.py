@@ -55,7 +55,9 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.train_nuscenes", "lss_carla_torch.parallel.__init__",
             "lss_carla_torch.parallel.mesh", "lss_carla_torch.parallel.step",
             "lss_carla_torch.parallel.camera",
-            "lss_carla_torch.parallel.dryrun"} <= set(modules)
+            "lss_carla_torch.parallel.dryrun", "lss_carla_torch.parallel.halo",
+            "lss_carla_torch.parallel.grid", "lss_carla_torch.ops.library",
+            "lss_carla_torch.serving", "lss_carla_torch.server"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 

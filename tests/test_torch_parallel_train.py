@@ -182,7 +182,7 @@ def test_multihost_launch_agrees_on_a_signal():
 
 def test_dryrun_multichip():
     losses = dryrun_multichip(4)
-    assert set(losses) == {"data", "camera"}
+    assert set(losses) == {"data", "camera", "grid"}
     assert all(np.isfinite(v) for v in losses.values())
-    with pytest.raises(NotImplementedError, match="§A, BEV-grid parallel mode"):
-        dryrun_multichip(4, flavours=("data", "grid"))
+    with pytest.raises(ValueError, match="unknown flavours"):
+        dryrun_multichip(4, flavours=("data", "pipeline"))

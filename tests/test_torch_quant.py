@@ -251,20 +251,23 @@ def test_quantize_model_refuses_train_mode_and_leaves_the_model():
 
 
 def test_int8_artifact_round_trip(tmp_path):
-    """An artifact exported with ``quantize`` keeps float weights, and
-    ``load_predict`` serves the live quantized model (1e-5, as JAX's
-    ``test_export_quantized_roundtrip``); without it, the float model."""
+    """An artifact exported with ``quantize`` holds the int8 program: one
+    ``_int_mm`` a swapped conv, and ``load_predict`` serves the live
+    quantized model (1e-5, as JAX's ``test_export_quantized_roundtrip``);
+    without it, the float model."""
+    from lss_carla_torch.serving import read_meta
     _, _, port, args = _slim(2)
-    path = str(tmp_path / "lss_int8.pt")
+    path = str(tmp_path / "lss_int8.pt2")
     export_predict(port, path, bsz=2, quantize=True)
-    blob = torch.load(path, weights_only=True)
-    assert blob["quantize"] is True and blob["quant_min_channels"] == 64
-    assert blob["state_dict"].keys() == port.state_dict().keys()
-    served = load_predict(path, device="cpu")(*args).numpy()
-    live_q = _port_logits(Q.quantize_model(port)[0], args)
-    np.testing.assert_allclose(served, live_q, atol=1e-5, rtol=1e-5)
-    assert isinstance(load_predict(path, device="cpu").model.bevencode.conv1,
-                      Q.Int8Conv2d)
+    meta = read_meta(path)
+    assert meta["quantize"] is True and meta["quant_min_channels"] == 64
+    qmodel, swapped = Q.quantize_model(port)
+    served = load_predict(path, device="cpu")
+    int_mm = [n for n in served.program.graph.nodes
+              if n.target is torch.ops.aten._int_mm.default]
+    assert swapped and len(int_mm) == len(swapped)
+    np.testing.assert_allclose(served(*args).numpy(), _port_logits(qmodel, args),
+                               atol=1e-5, rtol=1e-5)
     export_predict(port, path, bsz=2)
     np.testing.assert_array_equal(load_predict(path, device="cpu")(*args).numpy(),
                                   _port_logits(port, args))
@@ -325,7 +328,8 @@ def test_export_cli_quantize(tmp_path, capsys):
     export_cli(["--checkpoint", str(ckpt), "--out", str(art), "--quantize",
                 "--bsz", "2", "--H", "64", "--W", "128",
                 "--final_dim", "32", "64", "--xbound", "-40", "40", "5",
-                "--ybound", "-40", "40", "5", "--dbound", "4", "36", "8"])
+                "--ybound", "-40", "40", "5", "--dbound", "4", "36", "8",
+                "--device", "cpu"])
     assert "int8" in capsys.readouterr().out
     np.testing.assert_allclose(load_predict(str(art), device="cpu")(*args).numpy(),
                                _port_logits(Q.quantize_model(port)[0], args),

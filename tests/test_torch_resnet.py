@@ -171,7 +171,7 @@ def test_clis_take_the_resnet_variants(tmp_path):
     export_cli(["--checkpoint", str(ckpt), "--out", str(art), "--variant",
                 "resnet34", "--H", "64", "--W", "128", "--final_dim", "32", "64",
                 "--xbound", "-40", "40", "5", "--ybound", "-40", "40", "5",
-                "--dbound", "4", "36", "8"])
+                "--dbound", "4", "36", "8", "--device", "cpu"])
     x = example_args(read_signature(str(art)))
     with torch.no_grad():
         want = model(*map(torch.from_numpy, x))

@@ -377,7 +377,7 @@ def test_empty_val_set_matches_jax(fixture_root, tmp_path, monkeypatch):
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path,
                                              monkeypatch):
     from lss_carla_torch.training.loop import UNPORTED
-    assert set(UNPORTED) == {"pretrained_trunk", "grid_devices"}
+    assert set(UNPORTED) == {"pretrained_trunk"}
     with pytest.raises(NotImplementedError, match="§A, --pretrained_trunk"):
         train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
     # with a ResNet trunk the JAX trainer's own check comes first
@@ -395,15 +395,15 @@ def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path,
             train(fixture_root, **TINY, n_devices=n, logdir=str(tmp_path))
     # multihost without a launcher's environment; cam_devices > 1 with
     # fused_dw (as in JAX) and with cameras that do not split; the BEV-grid
-    # mode waits in ROADMAP.md
+    # mode on fewer ranks than its grid axis (JAX's check)
     for kw, err, match in (
             ({"multihost": True}, RuntimeError, "launcher's environment"),
             ({"n_devices": 2, "cam_devices": 2, "fused_dw": True}, ValueError,
              "composes with data parallelism only"),
             ({"n_devices": 2, "cam_devices": 2, "ncams": 5}, ValueError,
              "ncams=5 must be divisible by cam_devices=2"),
-            ({"grid_devices": 2}, NotImplementedError,
-             "§A, BEV-grid parallel mode")):
+            ({"grid_devices": 2}, ValueError,
+             "n_devices=1 must be divisible by grid_devices=2")):
         with pytest.raises(err, match=match):
             train(fixture_root, **dict(TINY, **kw), logdir=str(tmp_path))
     # nuScenes is ported: the keywords reach its loader (which finds no
@@ -426,8 +426,9 @@ def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path,
     from lss_carla_torch.train import main
     with pytest.raises(SystemExit):
         main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto"])
-    with pytest.raises(SystemExit):
-        main(["--dataroot", str(fixture_root), "--grid_devices", "2"])
+    with pytest.raises(ValueError, match="divisible by grid_devices=2"):
+        main(["--dataroot", str(fixture_root), "--grid_devices", "2",
+              "--device", "cpu"])
     with pytest.raises(ValueError, match="resnet"):
         main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto",
               "--variant", "resnet34"])

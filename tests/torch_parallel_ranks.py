@@ -20,11 +20,15 @@ from lss_carla_torch.data.loader import DataLoader
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.parallel.camera import (camera_forward,
                                              make_camera_sharded_predict)
+from lss_carla_torch.parallel.grid import (grid_axis,
+                                           make_grid_sharded_eval_step,
+                                           make_grid_sharded_predict,
+                                           make_grid_sharded_train_step,
+                                           shard_batch_grid)
 from lss_carla_torch.parallel.mesh import (check_replicated, init_process,
                                            make_mesh, make_mesh_2d,
-                                           shard_batch)
-from lss_carla_torch.parallel.step import (all_reduce_packed,
-                                           make_sharded_eval_step,
+                                           make_mesh_grid, shard_batch)
+from lss_carla_torch.parallel.step import (make_sharded_eval_step,
                                            make_sharded_train_step,
                                            reduce_train)
 from lss_carla_torch.training.bn_recal import recalibrate_bn
@@ -123,7 +127,7 @@ def data_parallel(rank: int, p: dict) -> dict:
     for fused in (False, True):
         model = build(p, fused)
         recalibrate_bn(model, [tensors(shard_batch(mesh, p["batch"]))],
-                       lambda ts: all_reduce_packed([ts], [0.5], mesh.world))
+                       dist.group.WORLD)
         out["recal"][fused] = {
             k: v.clone() for k, v in model.state_dict().items()
             if k.endswith(("running_mean", "running_var"))}
@@ -149,4 +153,73 @@ def camera(rank: int, p: dict) -> dict:
                    "union": torch.tensor(0.0)}
         reduce_train(state, metrics, mesh.world, mesh.size, mesh.n_cam)
         out["grads"] = {k: q.grad.clone() for k, q in model.named_parameters()}
+    return out
+
+
+def halo(rank: int, p: dict) -> dict:
+    """The grid ops on this rank's slabs of each case's global input, on a
+    (1, n) grid mesh: forward, and the backward of <out, cotangent>. Each
+    case returns this rank's output slab, its input gradient and its
+    weight-gradient part."""
+    mesh = make_mesh_grid(1, p["n"])
+    axis = grid_axis(mesh)
+    out = []
+    for case in p["cases"]:
+        x, n = case["x"], case["x"].shape[2]
+        lo, hi = axis.rows(n)
+        slab = x[:, :, lo:hi].clone().requires_grad_()
+        if "scale" in case:
+            y, n_out = axis.upsample(slab, n, case["scale"])
+            w = None
+        else:
+            w = case["w"].clone().requires_grad_()
+            s, pad = case["stride"], case["padding"]
+            y, n_out = axis.conv2d(slab, n, w, None, (s, s), (pad, pad))
+        j0, j1 = axis.rows(n_out)
+        (y * case["cot"][:, :, j0:j1]).sum().backward()
+        out.append({"y": y.detach(), "dx": slab.grad,
+                    "dw": None if w is None else w.grad})
+    return out
+
+
+def grid(rank: int, p: dict) -> dict:
+    """The grid mode on a (data, grid) mesh, on this rank's lift rows: the
+    predict, one train step (no clip, no weight decay: ``.grad`` keeps the
+    summed gradient) on the batch and (``half``) one on a second batch,
+    the sharded validation of a ``pad_last`` set, and (with ``dropout``)
+    steps with dropout on after which the replicas are checked
+    bit-equal."""
+    mesh = make_mesh_grid(*p["mesh"])
+    model = build(p)
+    rows = tensors(shard_batch_grid(mesh, p["batch"]))
+    out = {"logits": make_grid_sharded_predict(model, mesh)(None, rows[:6]),
+           "data_index": mesh.data_index}
+    for key, batch in (("step", p["batch"]), ("half_step", p.get("half"))):
+        if batch is None:
+            continue
+        model = build(p)
+        state = create_train_state(model, weight_decay=0.0, max_grad_norm=0.0)
+        m = make_grid_sharded_train_step(model, mesh, p["pos_weight"])(
+            state, tensors(shard_batch_grid(mesh, batch)))
+        check_replicated(model, mesh)
+        out[key] = {
+            "loss": m["loss"].item(), "intersect": m["intersect"].item(),
+            "union": m["union"].item(),
+            "grads": {k: q.grad.clone() for k, q in model.named_parameters()},
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+    loader = DataLoader(Samples(p["val"]), 1, pad_last=True, num_workers=0,
+                        shard_index=mesh.rank, num_shards=mesh.size)
+    out["val"] = get_val_info(make_grid_sharded_eval_step(
+        build(p), mesh, p["pos_weight"]), None, loader)
+    if p.get("dropout"):
+        model = compile_model(GridConf.from_dict(p["grid"]),
+                              DataAugConf.from_dict(p["aug"]),
+                              variant="slim", device="cpu")
+        state = create_train_state(model)
+        step = make_grid_sharded_train_step(model, mesh, p["pos_weight"],
+                                            seed=7)
+        for i in range(2):
+            step(state, tensors(shard_batch_grid(
+                mesh, tuple(np.roll(a, i, 0) for a in p["batch"]))))
+        out["digest"] = check_replicated(model, mesh)
     return out

@@ -12,12 +12,19 @@ exits non-zero without the final result line:
 2. the splat kernel against its plain version (``splat_reference``) on the
    card, on seeded inputs with ~7 % of ids at the sentinel and NaN features
    at those points: (B 8, P 43,296, C 64, S 40,000) in f32 and in bf16, and
-   S 160,000 in f32; then on the main path's own inputs (the model's lift
-   and geometry at bsz 8). The wrapper (zero fill, kernel and, for bf16,
-   the cast), plain version and ``index_add_`` (the one PyTorch call
-   computing the same function, timed here only) are timed beside the byte
-   bound, and the zero fill, the cast and the kernel's device time alone;
-   with the in-grid points a tile folds into one run of its sort-and-reduce;
+   S 160,000 in f32; at B0's bf16 bsz-8 shape on the bench's served ids
+   (``lss_carla_torch.bench.build``'s model and inputs); then on the main
+   path's own inputs (the model's lift and geometry at bsz 8) and its
+   first 2 and 1 items (a grid-mode rank's rows). At every shape the
+   segment kernel (bf16's route, also run on the f32 inputs beside the
+   tile kernel) gives the same bits in two calls and the same bits as the
+   plain version on the CPU; a call puts at most 2 activities on the
+   card. The wrapper
+   (queued on the device), the plain version and the library call (a
+   zeroed buffer and ``index_add_`` in the input dtype: the same function
+   in one PyTorch call, timed here only) are timed beside the byte bound,
+   with the kernel's device time, its work items and the in-grid points a
+   segment;
 3. serving at full width: the B0 LSS model at the default config (6 x
    128 x 352 cameras, 41 depth bins, 200 x 200 grid) with seeded weights,
    exported with ``export_predict`` and served over HTTP by ``serve()``,
@@ -396,80 +403,110 @@ def splat_bound(pts, ids, num_slots):
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
 
 
-def points_per_run(ids, num_slots, tile=splat_cuda.TILE):
-    """In-grid points per distinct (tile, id) pair: how many points the
-    kernel's sort-and-reduce folds into one vector atomic, on average."""
-    B, P = ids.shape
+def segment_points(ids, num_slots):
+    """(most and mean in-grid points an (item, segment), work items): the
+    splat kernel's segments of SEG_SLOTS slots, a segment of n > K points
+    cut into ceil(n / K) chunks (ops/splat_cuda.py)."""
+    B = ids.shape[0]
+    R, K = splat_cuda.SEG_SLOTS, splat_cuda.CHUNK_POINTS
+    nseg = -(-num_slots // R)
     valid = (ids >= 0) & (ids < num_slots)
-    tiles = torch.arange(P, device=ids.device) // tile
-    key = ((torch.arange(B, device=ids.device)[:, None] * -(-P // tile) + tiles)
-           * num_slots + ids.long())
-    n_valid = int(valid.sum())
-    return n_valid, torch.unique(key[valid]).numel()
+    key = (torch.arange(B, device=ids.device)[:, None] * nseg + ids.long() // R)[valid]
+    n = torch.bincount(key, minlength=B * nseg)
+    chunks = torch.where(n > K, (n + K - 1) // K, torch.ones_like(n))
+    return int(n.max()), float(n.float().mean()), int(chunks.sum())
+
+
+def bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
 
 
 def check_splat(name, pts, ids, num_slots):
-    """Kernel vs plain version on the card; returns (max_abs_err, times).
+    """The dtype's route (``splat_forward``: the tile kernel in f32, the
+    segment kernel in bf16) vs its plain version on the card; returns
+    (max_abs_err, times).
 
-    Tolerance: both sum each slot's n points in f32 in some order, so each
-    is within (n-1) u sum|x| of the exact sum (u = 2^-24); they may differ
-    by twice that. bf16 outputs round that f32 sum once more: plus one bf16
-    ulp (2^-8 relative). Sentinel points carry NaN features, so any that
-    leaked into a slot would show."""
-    got = splat_cuda.splat_forward(pts, ids, num_slots)
-    ref = splat_reference(pts, ids, num_slots)
+    Tolerance against the plain version on the card: both sum each slot's
+    n points in f32, in some order, so each is within (n-1) u sum|x| of
+    the exact sum (u = 2^-24); they may differ by twice that. bf16 outputs
+    round that f32 sum once more: plus one bf16 ulp (2^-8 relative).
+    Sentinel points carry NaN features, so any that leaked into a slot
+    would show. The segment kernel (on f32 inputs too, where it is timed
+    beside the route) must give the same bits in two calls, and the same
+    bits as the plain version on the CPU (index_add_ there adds in point
+    order, the segment kernel's order). A call puts at most 2 activities
+    on the card."""
+    S, (B, P, C) = int(num_slots), pts.shape
+    got = splat_cuda.splat_forward(pts, ids, S)
+    again = splat_cuda.splat_forward(pts, ids, S)
+    bf16 = pts.dtype == torch.bfloat16
+    seg = got if bf16 else splat_cuda.segments_forward(pts, ids, S)
+    seg_again = again if bf16 else splat_cuda.segments_forward(pts, ids, S)
+    ref = splat_reference(pts, ids, S)
     torch.cuda.synchronize()
-    assert got.shape == ref.shape == (ids.shape[0], num_slots, pts.shape[-1])
-    assert got.dtype == pts.dtype, (got.dtype, pts.dtype)
-    assert torch.isfinite(got).all(), f"{name}: non-finite output (sentinel leak?)"
     ones = torch.ones_like(pts[..., :1], dtype=torch.float32)
-    count = splat_reference(ones, ids, num_slots)
-    abs_sum = splat_reference(torch.nan_to_num(pts.float()).abs(), ids, num_slots)
+    count = splat_reference(ones, ids, S)
+    abs_sum = splat_reference(torch.nan_to_num(pts.float()).abs(), ids, S)
     bound = 2 * count.clamp(min=1) * 2.0 ** -24 * abs_sum + 1e-7
-    if pts.dtype == torch.bfloat16:
+    if bf16:
         bound = bound + 2.0 ** -8 * ref.float().abs()
-    err = (got.float() - ref.float()).abs()
-    excess = (err - bound).max().item()
-    assert excess <= 0, f"{name}: kernel vs plain exceeds the bound by {excess}"
-    max_err = err.max().item()
+    for kernel, out in (("route", got), ("segment kernel", seg)):
+        assert out.shape == ref.shape == (B, S, C)
+        assert out.dtype == pts.dtype, (out.dtype, pts.dtype)
+        assert torch.isfinite(out).all(), f"{name}: {kernel}: non-finite output"
+        excess = ((out.float() - ref.float()).abs() - bound).max().item()
+        assert excess <= 0, f"{name}: {kernel} vs plain exceeds the bound by {excess}"
+    max_err = (got.float() - ref.float()).abs().max().item()
+    repeat = (got.float() - again.float()).abs().max().item()
+    assert torch.equal(bits(seg), bits(seg_again)), f"{name}: two calls differ"
+    on_cpu = splat_reference(pts.cpu(), ids.cpu(), S)
+    cpu_err = (seg.cpu().float() - on_cpu.float()).abs().max().item()
+    assert torch.equal(bits(seg.cpu()), bits(on_cpu)), \
+        f"{name}: segment kernel vs the plain version on the CPU: {cpu_err:.3e}"
 
-    S = int(num_slots)
     rows = torch.where((ids >= 0) & (ids < S), ids.long(), S)
-    rows = (rows + torch.arange(ids.shape[0], device=ids.device)[:, None] * (S + 1)).reshape(-1)
-    src = pts.reshape(-1, pts.shape[-1]).float()
-    buf = torch.zeros((ids.shape[0] * (S + 1), pts.shape[-1]), device=pts.device)
-    acc_shape = (ids.shape[0], S, pts.shape[-1])
-    wrapper = lambda: splat_cuda.splat_forward(pts, ids, num_slots)  # noqa: E731
+    rows = (rows + torch.arange(B, device=ids.device)[:, None] * (S + 1)).reshape(-1)
+    src = pts.reshape(-1, C)
+
+    def library():  # the same function in one call: a zeroed buffer in
+        # the input dtype, index_add_ in the input dtype
+        return torch.zeros((B * (S + 1), C), dtype=pts.dtype,
+                           device=pts.device).index_add_(0, rows, src)
+
+    wrapper = lambda: splat_cuda.splat_forward(pts, ids, S)  # noqa: E731
     times = {
-        "ms": cuda_ms(wrapper),
-        "plain_ms": cuda_ms(lambda: splat_reference(pts, ids, num_slots)),
-        "library_ms": cuda_ms(lambda: buf.index_add_(0, rows, src)),
+        "ms": queued_ms(wrapper),
+        "plain_ms": cuda_ms(lambda: splat_reference(pts, ids, S)),
+        "library_ms": cuda_ms(library),
     }
-    times["bound_ms"], times["bound_by"] = splat_bound(pts, ids, num_slots)
-    fill_ms = cuda_ms(lambda: torch.zeros(acc_shape, device=pts.device))
-    extra = ""
-    if pts.dtype == torch.bfloat16:
-        acc = torch.zeros(acc_shape, device=pts.device)
-        extra = f", f32 -> bf16 cast {cuda_ms(lambda: acc.to(pts.dtype)):.4f} ms"
+    times["bound_ms"], times["bound_by"] = splat_bound(pts, ids, S)
+    if not bf16:  # the segment kernel on the same f32 inputs
+        times["segments_ms"] = queued_ms(lambda: splat_cuda.segments_forward(pts, ids, S))
+    events_ms = cuda_ms(wrapper)
     dev = device_profile(wrapper) or {}
     kernel_dev = sum(ms for key, (ms, _) in dev.items() if "splat_kernel" in key)
-    queued = queued_ms(wrapper)
-    n_valid, n_runs = points_per_run(ids, S)
-    print(f"splat {name}: max_abs_err {max_err:.3e} (within the summation-order "
-          f"bound), wrapper {times['ms']:.4f} ms (zero fill + kernel"
-          f"{' + cast' if extra else ''}, CUDA events), plain "
-          f"{times['plain_ms']:.4f} ms, index_add_ {times['library_ms']:.4f} ms, "
-          f"{times['bound_by']} bound {times['bound_ms']:.4f} ms; alone: zero "
-          f"fill {fill_ms:.4f} ms{extra} (CUDA events), kernel "
-          + (f"{kernel_dev:.4f} ms device time (profiler; "
-             f"{sum(c for _, c in dev.values()):.0f} device activities a call)"
+    activities = sum(c for _, c in dev.values())
+    assert not dev or activities <= 2, f"{name}: {activities} device activities a call"
+    most, mean, chunks = segment_points(ids, S)
+    route = "segment kernel" if bf16 else "tile kernel"
+    print(f"splat {name}: route {route}, max_abs_err {max_err:.3e} (within the "
+          f"summation-order bound), two calls differ by {repeat:.3e}; segment "
+          f"kernel: two calls bit-equal, vs the plain version on the CPU "
+          f"{cpu_err:.3e} (bit-equal)"
+          + ("" if bf16 else f", {times['segments_ms']:.4f} ms queued")
+          + f"; wrapper {times['ms']:.4f} ms queued on the device "
+          f"({events_ms:.4f} ms back to back by CUDA events, host issue "
+          f"included), plain {times['plain_ms']:.4f} ms, library (zeros + "
+          f"index_add_ in {str(pts.dtype)[6:]}) {times['library_ms']:.4f} ms, "
+          f"{times['bound_by']} bound {times['bound_ms']:.4f} ms; kernel "
+          + (f"{kernel_dev:.4f} ms device time (profiler), {activities:.0f} "
+             f"device activities a call"
              if dev else "device time not measured (no profiler window saw "
              "a device record)")
-          + f", wrapper queued on the device {queued:.4f} ms; "
-          f"{n_valid} in-grid points in {n_runs} (tile, id) runs at tile "
-          f"{splat_cuda.TILE}: {n_valid / max(n_runs, 1):.2f} points a run, "
-          f"{n_runs * -(-pts.shape[-1] // 4)} vector atomics against "
-          f"{n_valid * pts.shape[-1]} scalar ones", flush=True)
+          + f"; in-grid points a segment of {splat_cuda.SEG_SLOTS} slots: "
+          f"max {most}, mean {mean:.1f}; {chunks} segment-kernel work items "
+          f"(segments, those over {splat_cuda.CHUNK_POINTS} points cut into "
+          f"chunks) of {B * -(-S // splat_cuda.SEG_SLOTS)} segments", flush=True)
     return max_err, times
 
 
@@ -2230,7 +2267,7 @@ def phase_nuscenes(tmp, seed, gen):
     def row(err, t, n):
         return {"launches": n, "max_abs_err": err,
                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}
+                                     "library_ms", "segments_ms") if k in t}}
     err, t = rows["5-camera train batch"]
     return launches, {"splat": row(err, t, launches["splat"]),
                       "dw_conv_stats": row(dw_err, dw_times,
@@ -3057,7 +3094,8 @@ def phase_export(tmp: str, seed: int) -> dict:
 
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
-    bsz-8 served batch ``many`` gives the splat. Returns check_splat's."""
+    bsz-8 served batch ``many`` gives the splat, then its first 2 and 1
+    items (a grid-mode rank's rows). Returns check_splat's at bsz 8."""
     with torch.inference_mode():
         t = [torch.as_tensor(a).cuda() for a in many]
         geom = model.get_geometry(*t[1:])
@@ -3069,7 +3107,35 @@ def main_path_splat(model, many):
     assert pts.shape == (8, 6 * 41 * 8 * 22, 64), pts.shape
     print(f"main-path splat inputs: {float((ids == S).float().mean()):.3f} of "
           f"points at the sentinel", flush=True)
-    return check_splat("main path f32 S=40000", pts, ids, S)
+    out = check_splat("main path f32 S=40000", pts, ids, S)
+    for b in (2, 1):  # a grid-mode rank's lift rows at bsz 4 on 2 and 4 ranks
+        check_splat(f"grid-mode rank f32 bsz {b} S=40000", pts[:b].contiguous(),
+                    ids[:b].contiguous(), S)
+    return out
+
+
+def bench_splat():
+    """Phase 2 at the bench's served shape: B0 in bf16 at bsz 8, on the
+    lift and ids of ``lss_carla_torch.bench.build``'s seeded model and
+    inputs (what ``inference_ms_per_sample_bsz8`` serves). Returns
+    check_splat's."""
+    from lss_carla_torch import bench
+    _, state, batch = bench.build(8, dtype="bfloat16")
+    model = state.model.eval()
+    with torch.inference_mode():
+        geom = model.get_geometry(*batch[1:6])
+        feats = model.get_cam_feats(batch[0])
+        ids, _ = voxel_indices(geom, model.dx, model.bx, model.nx)
+    pts = feats.reshape(8, -1, model.camC).contiguous()
+    ids = ids.reshape(8, -1).contiguous()
+    S = int(np.prod(model.nx))
+    del state, model
+    assert pts.dtype == torch.bfloat16 and pts.shape == (8, 6 * 41 * 8 * 22, 64)
+    print(f"bench splat inputs (B0 bf16 lift, bsz 8): "
+          f"{float((ids == S).float().mean()):.3f} of points at the sentinel",
+          flush=True)
+    return check_splat("B0 bf16 bsz 8 (the bench's served ids) S=40000", pts,
+                       ids, S)
 
 
 def main(argv=None) -> int:
@@ -3120,6 +3186,7 @@ def main(argv=None) -> int:
                                ("bf16 S=40000", torch.bfloat16, S),
                                ("f32 S=160000", torch.float32, 4 * S)):
         check_splat(name, *random_splat_inputs(gen, B, P, C, slots, dtype), slots)
+    b0_bf16 = bench_splat()
 
     # 3. serving at full width
     at(3)
@@ -3270,6 +3337,7 @@ def main(argv=None) -> int:
                              + sum(export_launches.values())),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat"),
+                "b0_bf16": {"max_abs_err": b0_bf16[0], **b0_bf16[1]},
                 "nuscenes": nusc_rows["splat"],
                 "parallel_launches": parallel_row("splat"),
                 "grid_launches": grid_launches["splat"],

@@ -13,10 +13,12 @@ included, the host's issue time not):
 
 * ``dw_conv_stats_forward`` at the 16 depthwise shapes of the B0 trunk at
   N 24 (one bsz-4 train forward) in f32, and blocks 0, 1 and 11 in bf16;
-* ``splat_forward`` (zero fill, kernel and, for bf16, the cast) on seeded
-  random ids (B 8, P 43,296, C 64, S 40,000, ~7 % at the sentinel) and on
-  the main path's own ids: the lift and geometry of a seeded B0 model at
-  bsz 8.
+* ``splat_forward`` (the whole call, whatever it launches) on seeded
+  random ids (B 8, P 43,296, C 64, S 40,000, ~7 % at the sentinel); on
+  the main path's own ids (the lift and geometry of a seeded B0 model at
+  bsz 8) in f32 and in bf16; on ``chip_smoke.rig``'s ids at the stretch
+  grid (bsz 4, S 160,000) with seeded bf16 features; and on its
+  5-camera ids at bsz 4 (the nuScenes train batch's shape) in f32.
 
 Each run prints one JSON line; the last line is a JSON summary with every
 run's numbers and the card's name and power limit.
@@ -96,6 +98,20 @@ def worker(root: str) -> dict:
         pts = model.get_cam_feats(t[0]).reshape(8, -1, 64).contiguous()
         ids = voxel_indices(geom, model.dx, model.bx, model.nx)[0].reshape(8, -1).contiguous()
     out["splat"]["main path f32"] = queued_ms(lambda: splat_cuda.splat_forward(pts, ids, S))
+    pts = pts.to(torch.bfloat16)
+    out["splat"]["main path bf16"] = queued_ms(lambda: splat_cuda.splat_forward(pts, ids, S))
+    for name, grid, B, ncams, dtype in (
+            ("stretch bf16", cs.STRETCH_GRID, 4, 6, torch.bfloat16),
+            ("5-camera f32", GridConf(), 4, 5, torch.float32)):
+        rig = cs.rig(np.random.default_rng(0), B, ncams, (128, 352))
+        model = compile_model(grid, DataAugConf(), outC=1, variant="slim",
+                              device="cpu").cuda()
+        with torch.inference_mode():
+            geom = model.get_geometry(*[torch.as_tensor(a).cuda() for a in rig])
+            ids = voxel_indices(geom, model.dx, model.bx, model.nx)[0].reshape(B, -1).contiguous()
+        S = int(np.prod(model.nx))
+        pts = torch.randn(B, ids.shape[1], 64, generator=gen, device="cuda").to(dtype)
+        out["splat"][name] = queued_ms(lambda: splat_cuda.splat_forward(pts, ids, S))
     return out
 
 

@@ -251,26 +251,48 @@ def _splat_bound(pts, ids, num_slots):
     return 2 * count.clamp(min=1) * 2.0 ** -24 * abs_sum + 1e-6
 
 
+def _bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
 @pytest.mark.parametrize("case", ["ragged_tiles", "one_id", "all_sentinel",
-                                  "scalar_c6", "stretch_grid"])
+                                  "scalar_c6", "stretch_grid", "heavy_segment",
+                                  "rounds", "unaligned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_splat_tile_edges(cuda, case, dtype):
-    """The tile-sorted kernel at its edges: P not a multiple of the tile,
-    every point on one id (the worst contention), every point at the
-    sentinel, C = 6 (the scalar path), and S = 160,000."""
+def test_splat_tile_edges(cuda, case, dtype, monkeypatch):
+    """The kernel at its edges: P not a multiple of a tile and S not of a
+    segment, every point on one id (a run longer than a chunk), every
+    point at the sentinel, C = 6 (the scalar path), S = 160,000, segments
+    heavy enough to be cut into chunks, tiles of several rounds (a small
+    table budget), and features that start off a 16-byte boundary (the
+    scalar path). The dtype's route within the summation-order bound of
+    the plain version on the card; the segment kernel, in both dtypes,
+    bit-equal to the plain version on the CPU, which adds in point order as
+    it does, and from call to call."""
     g = torch.Generator(device="cuda").manual_seed(3)
-    B, P, C, num_slots = 2, 3 * splat_cuda.TILE + 77, 64, 700
+    R = splat_cuda.SEG_SLOTS
+    B, P, C, num_slots = 2, 3 * 256 + 77, 64, 3 * R + 45
     if case == "scalar_c6":
         C = 6
     if case == "stretch_grid":
         B, P, num_slots = 2, 43296, 160000
+    if case == "rounds":
+        monkeypatch.setattr(splat_cuda, "TABLE_BUDGET", 8)
+        assert splat_cuda.plan_splat(B, P, num_slots).rounds > 1
     pts = torch.randn(B, P, C, generator=g, device=cuda).to(dtype)
+    if case == "unaligned":
+        flat = torch.empty(B * P * C + 1, device=cuda, dtype=dtype)
+        pts = flat[1:].view(B, P, C).copy_(pts)
     ids = torch.randint(0, num_slots + 1, (B, P), generator=g, device=cuda,
                         dtype=torch.int32)
     if case == "one_id":
         ids.fill_(num_slots // 2)
     elif case == "all_sentinel":
         ids.fill_(num_slots)
+    elif case == "heavy_segment":
+        ids = torch.randint(R, 3 * R, (B, 3000), generator=g, device=cuda,
+                            dtype=torch.int32)
+        pts = torch.randn(B, 3000, C, generator=g, device=cuda).to(dtype)
     pts[ids == num_slots] = float("nan")
     got = splat_cuda.splat_forward(pts, ids, num_slots)
     torch.cuda.synchronize()
@@ -280,8 +302,52 @@ def test_splat_tile_edges(cuda, case, dtype):
     if dtype == torch.bfloat16:
         bound = bound + 2.0 ** -8 * want.float().abs()
     assert ((got.float() - want.float()).abs() <= bound).all()
+    # the segment kernel (the bf16 route) in both dtypes: two calls and
+    # the plain version on the CPU give the same bits
+    seg = splat_cuda.segments_forward(pts, ids, num_slots)
+    again = splat_cuda.segments_forward(pts, ids, num_slots)
+    assert torch.equal(_bits(seg), _bits(again))
+    on_cpu = S.splat_reference(pts.cpu(), ids.cpu(), num_slots)
+    assert torch.equal(_bits(seg.cpu()), _bits(on_cpu))
     if case == "all_sentinel":
-        assert not got.any()
+        assert not got.any() and not seg.any()
+
+
+def test_splat_device_activities_a_call(cuda):
+    """At most 2 device activities a call: in bf16 the segment kernel
+    alone (no zero fill, no cast), in f32 the output's zero fill and the
+    tile kernel (profiled as the depthwise kernel's test is)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ids = torch.randint(0, 40001, (4, 43296), generator=g, device=cuda,
+                        dtype=torch.int32)
+    dev = torch.autograd.DeviceType.CUDA
+    for dtype, per_call in ((torch.float32, 2), (torch.bfloat16, 1)):
+        pts = torch.randn(4, 43296, 64, generator=g, device=cuda).to(dtype)
+        for _ in range(2):  # the scratch is made on the first call
+            splat_cuda.splat_forward(pts, ids, 40000)
+        torch.cuda.synchronize()
+        n, keys, counts = 5, set(), []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(0.5)
+                for _ in range(n):
+                    splat_cuda.splat_forward(pts, ids, 40000)
+                torch.cuda.synchronize()
+                time.sleep(0.5)
+            events = [e for e in prof.key_averages() if e.device_type == dev
+                      and not getattr(e, "is_user_annotation", False)]
+            keys = {e.key for e in events}
+            counts.append(sum(e.count for e in events))
+            assert counts[-1] <= per_call * n, [(e.key, e.count) for e in events]
+            if counts[-1] == per_call * n:
+                break
+        assert max(counts) > 0, counts
+        assert any("splat_kernel" in k for k in keys), keys
+        if dtype == torch.bfloat16:
+            assert all("splat_kernel_segments" in k for k in keys), keys
 
 
 # (N, C, H, W): a plane cut into several bands; several images a block;

@@ -10,9 +10,12 @@ What surrounds them is plain Python and is held here:
 * the staged bands: each planned input band, copied out of the input with
   the kernel's zero halo and convolved with ``F.conv2d``, equals the plain
   version's output on that tile exactly;
-* the splat's tile-sort-and-reduce: sorting each tile's ids, dropping the
-  sentinel and summing runs gives ``splat_reference`` within the
-  summation-order bound.
+* the f32 splat's tile-sort-and-reduce: sorting each tile's ids, dropping
+  the sentinel and summing runs gives ``splat_reference`` within the
+  summation-order bound;
+* the segment splat's plan (``splat_cuda.plan_splat``: segments, tile
+  rounds, chunk queue, scratch and shared memory) and its four phases
+  emulated step for step, which equal ``splat_reference`` bit for bit.
 
 No JAX here."""
 
@@ -271,9 +274,139 @@ def test_splat_tile_reduce_matches_reference_on_random_ids():
 def test_splat_tile_reduce_matches_reference_on_voxel_ids():
     """Ids from voxel_indices at a tiny rig: consecutive points of one
     (camera, depth) slab share voxels, so runs are longer than 1."""
+    ids, num_slots = voxel_ids(2)
+    ids = torch.from_numpy(ids).contiguous()
+    rng = np.random.default_rng(1)
+    pts = rng.normal(size=(*ids.shape, 6)).astype(np.float32)
+    got = torch.from_numpy(tile_sort_reduce(pts, ids.numpy(), num_slots,
+                                            splat_cuda.TILE))
+    tp = torch.from_numpy(pts)
+    want = S.splat_reference(tp, ids, num_slots)
+    assert ((got - want).abs() <= _splat_bound(tp, ids, num_slots)).all()
+    # the source-side reduction has something to reduce: fewer runs (the
+    # distinct in-grid ids of each tile) than in-grid points
+    T = splat_cuda.TILE
+    runs = sum(len(torch.unique(row[(row >= 0) & (row < num_slots)]))
+               for item in ids for row in item.split(T))
+    assert runs < int(((ids >= 0) & (ids < num_slots)).sum())
+
+
+R, K, ROUND, WARPS = (splat_cuda.SEG_SLOTS, splat_cuda.CHUNK_POINTS,
+                      splat_cuda.THREADS, splat_cuda.WARPS)
+
+
+def emulate_splat(pts, ids, num_slots, alloc_order=None):
+    """Test-only numpy emulation of the splat kernel's four phases, step
+    for step: the (tile, segment) ranks from each warp's groups, the scan
+    table's per-segment scan over tiles, buckets reserved in
+    ``alloc_order`` (the kernel's atomic allocator serves segments in
+    whatever order its warps come), the scatter, then each work item's
+    per-warp slot counts, slot offsets, chunk ownership, grouped points and
+    point-order f32 sums. Returns (f32 sums (B, S, C), writes of each
+    output row (B, S), chunks placing each point (B, P), chunks a
+    segment (B, nseg))."""
+    B, P, C = pts.shape
+    S = num_slots
+    plan = splat_cuda.plan_splat(B, P, S)
+    nseg, tiles, tp = plan.nseg, plan.tiles, plan.rounds * ROUND
+
+    # A: each round's warps publish (segment, count); a point's rank is
+    # the column's count before the round, the earlier warps' and lanes'
+    table = np.zeros((B, nseg, tiles), np.int64)
+    rank = np.full((B, P), -1, np.int64)
+    for b in range(B):
+        for t in range(tiles):
+            for r in range(plan.rounds):
+                p0 = t * tp + r * ROUND
+                pt = np.arange(p0, p0 + ROUND)
+                idv = np.where(pt < P, ids[b, np.minimum(pt, P - 1)], -1)
+                key = np.where((idv >= 0) & (idv < S), idv // R, -1)
+                lists = []
+                for w in range(WARPS):
+                    k = key[32 * w:32 * w + 32]
+                    groups = {}
+                    for g in k[k >= 0]:
+                        groups[g] = groups.get(g, 0) + 1
+                    lists.append(groups)
+                base = {g: table[b, g, t] for g in set(key[key >= 0].tolist())}
+                for i in np.flatnonzero(key >= 0):
+                    w, g = i // 32, key[i]
+                    before = sum(lists[v].get(g, 0) for v in range(w))
+                    lanes = int((key[32 * w:i] == g).sum())
+                    rank[b, pt[i]] = base[g] + before + lanes
+                for g, n0 in base.items():  # the first warp's leader writes
+                    table[b, g, t] = n0 + sum(lst.get(g, 0) for lst in lists)
+
+    # B: exclusive scan over tiles; buckets reserved in alloc_order
+    count = table.sum(-1)
+    offset = np.cumsum(table, -1) - table
+    order = np.arange(B * nseg) if alloc_order is None else alloc_order
+    start = np.zeros(B * nseg, np.int64)
+    at = 0
+    for s in order:
+        start[s], at = at, at + count.reshape(-1)[s]
+    start = start.reshape(B, nseg)
+    chunks = np.where(count > K, -(-count // K), 1)
+
+    # C: scatter
+    bucket = np.full(B * P, -1, np.int64)
+    for b in range(B):
+        for p in range(P):
+            if 0 <= ids[b, p] < S:
+                g, t = ids[b, p] // R, p // tp
+                pos = start[b, g] + offset[b, g, t] + rank[b, p]
+                assert bucket[pos] == -1
+                bucket[pos] = p
+
+    # D: every (segment, chunk): per-warp slot counts, slot offsets, the
+    # chunk's slots, its points grouped by slot, each run summed in point
+    # order in f32 from 0 and its row written
+    out = np.zeros((B, S, C), np.float32)
+    writes = np.zeros((B, S), np.int64)
+    placed = np.zeros((B, P), np.int64)
+    for b in range(B):
+        for g in range(nseg):
+            n, st, m = count[b, g], start[b, g], chunks[b, g]
+            seg_pts = bucket[st:st + n]
+            slot = ids[b, seg_pts] - g * R
+            per_warp = -(-n // WARPS)
+            cnt = np.zeros((WARPS, R), np.int64)
+            for w in range(WARPS):
+                lo, hi = min(n, w * per_warp), min(n, w * per_warp + per_warp)
+                np.add.at(cnt[w], slot[lo:hi], 1)
+            total = cnt.sum(0)
+            slot_start = np.cumsum(total) - total
+            warp_base = np.cumsum(cnt, 0) - cnt
+            slot_chunk = np.minimum(slot_start // K, m - 1)
+            nslots = min(R, S - g * R)
+            for j in range(m):
+                grouped = np.full(n, -1, np.int64)
+                cursor = warp_base.copy()
+                for w in range(WARPS):
+                    lo, hi = min(n, w * per_warp), min(n, w * per_warp + per_warp)
+                    for i in range(lo, hi):
+                        sl = slot[i]
+                        if slot_chunk[sl] == j:
+                            grouped[slot_start[sl] + cursor[w, sl]] = seg_pts[i]
+                            cursor[w, sl] += 1
+                            placed[b, seg_pts[i]] += 1
+                for sl in range(nslots):
+                    if slot_chunk[sl] != j:
+                        continue
+                    acc = np.zeros(C, np.float32)
+                    for k in range(slot_start[sl], slot_start[sl] + total[sl]):
+                        acc = acc + pts[b, grouped[k]]
+                    out[b, g * R + sl] = acc
+                    writes[b, g * R + sl] += 1
+    return out, writes, placed, chunks
+
+
+def voxel_ids(B, ncams=3):
+    """Ids from voxel_indices at a tiny rig: consecutive points of one
+    (camera, depth) slab share voxels."""
     grid = GridConf(xbound=(-10.0, 10.0, 1.0), ybound=(-10.0, 10.0, 1.0),
                     zbound=(-10.0, 10.0, 20.0), dbound=(2.0, 12.0, 2.0))
-    final_dim, downsample, B, N = (32, 64), 8, 2, 3
+    final_dim, downsample, N = (32, 64), 8, ncams
     frustum = torch.from_numpy(G.create_frustum(final_dim, downsample, grid.dbound))
     dx, bx, nx = G.gen_dx_bx(grid.xbound, grid.ybound, grid.zbound)
     yaw = np.deg2rad([0.0, 120.0, -120.0])
@@ -289,22 +422,118 @@ def test_splat_tile_reduce_matches_reference_on_voxel_ids():
     geom = G.get_geometry(frustum, rots, trans, intrins, torch.eye(3).repeat(B, N, 1, 1),
                           torch.zeros(B, N, 3))
     ids, valid = S.voxel_indices(geom, dx, bx, nx)
-    ids = ids.reshape(B, -1).contiguous()
-    num_slots = int(nx[0] * nx[1] * nx[2])
     assert 0 < valid.float().mean() < 1
-    rng = np.random.default_rng(1)
-    pts = rng.normal(size=(*ids.shape, 6)).astype(np.float32)
-    got = torch.from_numpy(tile_sort_reduce(pts, ids.numpy(), num_slots,
-                                            splat_cuda.TILE))
-    tp = torch.from_numpy(pts)
-    want = S.splat_reference(tp, ids, num_slots)
-    assert ((got - want).abs() <= _splat_bound(tp, ids, num_slots)).all()
-    # the source-side reduction has something to reduce: fewer runs (the
-    # distinct in-grid ids of each tile) than in-grid points
-    T = splat_cuda.TILE
-    runs = sum(len(torch.unique(row[(row >= 0) & (row < num_slots)]))
-               for item in ids for row in item.split(T))
-    assert runs < int(((ids >= 0) & (ids < num_slots)).sum())
+    return ids.reshape(B, -1).numpy(), int(nx[0] * nx[1] * nx[2])
+
+
+def splat_case(case, C, seed=0):
+    """(pts f32 numpy with NaN at dropped points, int32 ids, S)."""
+    rng = np.random.default_rng(seed)
+    if case == "voxel_ids":
+        ids, num_slots = voxel_ids(2)
+    elif case == "random_ids":  # a ragged last segment and tile
+        num_slots = 3 * R + 45
+        ids = rng.integers(-3, num_slots + 3, size=(2, 2 * ROUND + 77))
+    elif case == "heavy_segment":  # 1,500 points on 2 segments: 3 chunks each
+        num_slots = 4 * R
+        ids = rng.integers(R, 3 * R, size=(2, 3000))
+        ids[:, ::7] = 2 * R + 5  # one long run across chunk boundaries
+    elif case == "sentinel_item":  # item 1 has no point in the grid
+        num_slots = 2 * R
+        ids = rng.integers(0, num_slots, size=(2, 700))
+        ids[1] = num_slots
+    ids = ids.astype(np.int32)
+    pts = rng.normal(size=(*ids.shape, C)).astype(np.float32)
+    pts[(ids < 0) | (ids >= num_slots)] = np.nan  # dropped points never read
+    return pts, ids, num_slots
+
+
+def bits(x):
+    return x.view(torch.int16 if x.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C", [3, 64])
+@pytest.mark.parametrize("case", ["random_ids", "voxel_ids", "heavy_segment",
+                                  "sentinel_item"])
+def test_splat_emulation_equals_reference_bit_for_bit(case, C, dtype):
+    """The kernel's algorithm, emulated, against splat_reference on the
+    CPU: bit for bit, since both sum each slot in f32 in point order from
+    0 and round once (index_add_ on the CPU adds rows in index order).
+    Every output row is written once, every in-grid point placed by one
+    chunk, and where a segment holds more than K points it is cut into
+    chunks."""
+    pts, ids, num_slots = splat_case(case, C)
+    x = torch.from_numpy(pts).to(dtype)
+    sums, writes, placed, chunks = emulate_splat(x.float().numpy(), ids, num_slots)
+    got = torch.from_numpy(sums).to(dtype)
+    want = S.splat_reference(x, torch.from_numpy(ids), num_slots)
+    assert torch.isfinite(got).all()
+    assert torch.equal(bits(got), bits(want))
+    assert (writes == 1).all()
+    valid = (ids >= 0) & (ids < num_slots)
+    assert (placed[valid] == 1).all() and (placed[~valid] == 0).all()
+    assert (chunks > 1).any() == (case == "heavy_segment")
+    if case == "sentinel_item":
+        assert not got[1].any()
+
+
+def test_splat_emulation_takes_several_rounds_a_tile(monkeypatch):
+    """With a table budget this small the tiles grow to several 256-point
+    rounds, whose counts carry from round to round; the result is the
+    same bits."""
+    monkeypatch.setattr(splat_cuda, "TABLE_BUDGET", 8)
+    pts, ids, num_slots = splat_case("random_ids", 5)
+    plan = splat_cuda.plan_splat(*ids.shape, num_slots)
+    assert plan.rounds > 1 and plan.tiles < -(-ids.shape[1] // ROUND)
+    sums, writes, _, _ = emulate_splat(pts, ids, num_slots)
+    want = S.splat_reference(torch.from_numpy(pts), torch.from_numpy(ids), num_slots)
+    assert torch.equal(bits(torch.from_numpy(sums)), bits(want))
+    assert (writes == 1).all()
+
+
+def test_splat_emulation_does_not_depend_on_bucket_order():
+    """The kernel reserves buckets in whatever order its warps reach the
+    allocator: any order gives the same bits."""
+    pts, ids, num_slots = splat_case("heavy_segment", 8, seed=1)
+    nseg = splat_cuda.plan_splat(*ids.shape, num_slots).nseg
+    first = emulate_splat(pts, ids, num_slots)[0]
+    order = np.random.default_rng(2).permutation(ids.shape[0] * nseg)
+    again = emulate_splat(pts, ids, num_slots, alloc_order=order)[0]
+    assert np.array_equal(first.view(np.int32), again.view(np.int32))
+
+
+# (B, P, S): B0 and the stretch grid at their batch sizes, the nuScenes
+# batches (5 and 6 cameras), a grid rank's half, tiny and ragged shapes,
+# and the largest S the kernel takes
+PLAN_SHAPES = [(8, 43296, 40000), (4, 43296, 160000), (4, 36080, 40000),
+               (4, 43296, 40000), (2, 43296, 20000), (1, 1, 1), (3, 257, 257),
+               (2, 5000, 700), (1, 1000, 2 ** 31 - 1), (64, 43296, 40000)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_splat_plan_covers_every_slot_and_point_once(shape):
+    B, P, num_slots = shape
+    plan = splat_cuda.plan_splat(B, P, num_slots)
+    # segments: [g R, min(S, (g + 1) R)) for g < nseg cover [0, S) once
+    assert (plan.nseg - 1) * R < num_slots <= plan.nseg * R
+    if num_slots <= 10 ** 6:
+        seg = np.arange(num_slots) // R
+        assert np.array_equal(np.bincount(seg, minlength=plan.nseg),
+                              [min(R, num_slots - g * R) for g in range(plan.nseg)])
+    # tiles of whole rounds cover [0, P) once, and the table fits its budget
+    tp = plan.rounds * ROUND
+    assert (plan.tiles - 1) * tp < P <= plan.tiles * tp
+    segs = B * plan.nseg
+    assert segs * plan.tiles <= max(splat_cuda.TABLE_BUDGET, segs)
+    assert plan.table_ints == 4 + segs * plan.tiles
+    # the queue holds every chunk: segments of n > K points take
+    # ceil(n / K) <= 2 n / K each
+    assert plan.chunk_cap > 2 * B * P // K
+    assert plan.work_ints == (2 * plan.chunk_cap + 2 * B * plan.nseg + 3 * B * P
+                              + -(-B * P // 4))
+    assert plan.smem_bytes <= splat_cuda.SMEM_LIMIT
+    assert B * P < 2 ** 31 and B * plan.nseg < 2 ** 31
 
 
 @pytest.mark.parametrize("shift", [0, 1, 7], ids=["aligned", "mid_word", "odd"])

@@ -95,6 +95,44 @@ def test_voxel_pooling_matches_jax(rng, method):
                                atol=1e-5)
 
 
+def test_voxel_pooling_bf16_within_jax_rounding(rng):
+    """bf16 features: JAX's voxel_pooling scatter-adds in bf16 (a rounding
+    each add), the port sums in f32 and rounds once, so a slot of n points
+    differs by at most (n + 1) bf16 ulps of its sum of magnitudes; and the
+    port's is the f32 sum of the bf16 values rounded once, exactly."""
+    dx, bx, nx = JG.gen_dx_bx(*GRIDS["tiny"])
+    geom = rng.uniform(-2.2, 2.2, size=(2, 2, 3, 4, 5, 3)).astype(np.float32)
+    feats = rng.normal(size=(2, 2, 3, 4, 5, 6)).astype(np.float32)
+    fb = torch.from_numpy(feats).to(torch.bfloat16)
+    want = JS.voxel_pooling(jnp.asarray(geom), jnp.asarray(fb.float().numpy(),
+                            dtype=jnp.bfloat16), dx, bx, nx, method="scatter")
+    got = S.voxel_pooling(torch.from_numpy(geom), fb, dx, bx, nx)
+    assert got.dtype == torch.bfloat16 and str(want.dtype) == "bfloat16"
+    exact = S.voxel_pooling(torch.from_numpy(geom), fb.float(), dx, bx, nx)
+    assert torch.equal(got, exact.to(torch.bfloat16))
+    ones = torch.ones(*feats.shape[:-1], 1)
+    count = S.voxel_pooling(torch.from_numpy(geom), ones, dx, bx, nx)
+    mag = S.voxel_pooling(torch.from_numpy(geom), fb.float().abs(), dx, bx, nx)
+    n = count.repeat_interleave(feats.shape[-1], -1)
+    diff = (got.float() - torch.from_numpy(np.asarray(want, np.float32))).abs()
+    assert (count > 1).any()  # several points share a slot
+    assert (diff <= (n + 1) * 2.0 ** -8 * mag + 1e-6).all()
+
+
+@pytest.mark.parametrize("case", ["random_ids", "heavy_segment"])
+def test_segment_kernel_emulation_matches_pallas(case):
+    """The bf16 splat's kernel (csrc/splat.cu's segment kernel), emulated
+    step for step in tests/test_torch_kernel_plans.py, against the JAX
+    package's Pallas kernel (interpret mode) on the same f32 inputs,
+    segments cut into chunks included."""
+    from test_torch_kernel_plans import emulate_splat, splat_case
+    pts, ids, num_slots = splat_case(case, 8)
+    sums = emulate_splat(pts, ids, num_slots)[0]
+    want = np.asarray(splat_pallas_batched(
+        jnp.asarray(np.nan_to_num(pts)), jnp.asarray(ids), num_slots, True))
+    np.testing.assert_allclose(sums, want, rtol=1e-5, atol=1e-5)
+
+
 def test_voxel_pooling_rejects_unknown_method():
     with pytest.raises(ValueError, match="unknown splat method"):
         S.voxel_pooling(torch.zeros(1, 1, 1, 1, 1, 3),

@@ -192,7 +192,18 @@ exits non-zero without the final result line:
     f32 with the uint8 signature and in int8, both loaded and run in one
     fresh interpreter that imports no module of ``lss_carla_torch.models``
     (the splat launches counted there), its logits against the live model
-    (``SERVE_TOL``); the f32 artifact served once over HTTP.
+    (``SERVE_TOL``); the f32 artifact served once over HTTP;
+25. the pretrained trunk (``train(pretrained_trunk=...)``) on phase 8's
+    fixture: a seeded ``efficientnet_pytorch``-named B0 ImageNet file
+    with its head merged into the full-width B0 on the card (the trunk
+    bit-equal to the file, every other tensor untouched), served card
+    against CPU on uint8 images at phase 4's limit; ``train()`` from the
+    file with
+    ``fused_dw``, bsz 4, lr 0 and EMA for one step (trunk bit-equal to
+    the file, the EMA within 1e-6 relative, 16 depthwise launches and the
+    splat), then 3 steps at the default lr (finite losses); a resume from
+    phase 8's step-10 checkpoint with the file, whose trunk is the
+    checkpoint's.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -255,7 +266,11 @@ from lss_carla_torch.training.loss import bce_with_logits
 from lss_carla_torch.training.state import create_train_state
 from lss_carla_torch.training.step import make_train_step
 from lss_carla_torch.utils.backend import card_line
-from lss_carla_torch.utils.convert import reference_state_dict
+from lss_carla_torch.utils.convert import (imagenet_trunk_state_dict,
+                                           merge_trunk_state_dict,
+                                           reference_state_dict,
+                                           synthetic_imagenet_state_dict,
+                                           trunk_state_dict_from_checkpoint)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -3092,6 +3107,149 @@ def phase_export(tmp: str, seed: int) -> dict:
     return launches
 
 
+# --- phase 25: the pretrained trunk ------------------------------------
+# The file is a seeded efficientnet_pytorch-named B0 ImageNet state dict
+# with the classifier head (``convert.synthetic_imagenet_state_dict``:
+# He-scaled convs, positive BN variances), so an eval forward stays finite
+# and card against CPU compares numbers, not NaNs.
+
+# the EMA re-seeded from the merged trunk, after one EMA step of equal
+# tensors at lr 0: |ema - file| <= EMA_RTOL x max |file|, per tensor
+EMA_RTOL = 1e-6
+TRUNK = "camencode.trunk."
+
+
+class StepLosses:
+    """Keeps the loss of every step of the single-device train step that
+    ``train()`` builds while in use (``loop.make_train_step`` wrapped)."""
+
+    def __enter__(self):
+        self.saved, self.losses = loop.make_train_step, []
+
+        def make(*args, **kw):
+            step = self.saved(*args, **kw)
+
+            def recorded(state, batch):
+                metrics = step(state, batch)
+                self.losses.append(metrics["loss"].detach())
+                return metrics
+            return recorded
+        loop.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        loop.make_train_step = self.saved
+
+
+def trunk_params(model) -> dict:
+    return {k: v.detach().cpu()
+            for k, v in model.camencode.trunk.named_parameters()}
+
+
+def phase_pretrained(tmp: str, root, b0_run: str, seed: int) -> dict:
+    """Phase 25 on phase 8's fixture (``root``) and run (``b0_run``).
+    Returns its launches by kernel: the served forward and three train()
+    runs, counted from 0 just before the first and read after the last."""
+    t_phase = time.perf_counter()
+    path = f"{tmp}/efficientnet-b0-synthetic.pth"
+    sd = synthetic_imagenet_state_dict("b0", seed)
+    torch.save(sd, path)
+    want = imagenet_trunk_state_dict(sd, "b0")
+
+    # (a) the merge at full width on the card: the trunk is the file's bit
+    # for bit, every other tensor (num_batches_tracked too) as it was
+    model = compile_model(GridConf(), DataAugConf(), outC=1, variant="b0",
+                          device="cpu",
+                          generator=torch.Generator().manual_seed(seed)).cuda()
+    before = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    merge_trunk_state_dict(model, trunk_state_dict_from_checkpoint(path, "b0"))
+    merged = 0
+    for k, v in model.state_dict().items():
+        name = k[len(TRUNK):]
+        if k.startswith(TRUNK) and name in want:
+            assert torch.equal(v.cpu(), want[name]), k
+            merged += 1
+        else:
+            assert torch.equal(v.cpu(), before[k]), k
+    assert merged == len(want), (merged, len(want))
+
+    # (b) the merged model served on the card against the CPU (phase 4's
+    # limit, bsz 1, f32, TF32 off) on uint8 images, normalised in the
+    # program as served. (Phase 4 feeds 0-255 floats to a float program;
+    # through this trunk that runs every BN far outside its statistics)
+    art = f"{tmp}/pretrained-b0.pt2"
+    export_predict(copy.deepcopy(model).cpu().eval(), art, bsz=1,
+                   uint8_images=True)
+    del model
+    one = inputs(np.random.default_rng(seed + 25), 1, uint8=True)
+    reset_launches()  # phase 25's path starts here
+    cpu_logits = load_predict(art, device="cpu")(*one).numpy()
+    err, scale = assert_close(
+        "pretrained B0, card vs CPU",
+        load_predict(art, device="cuda")(*one).cpu().numpy(), cpu_logits,
+        CPU_TOL)
+    logit_max = float(np.abs(cpu_logits).max())
+
+    # (c) train() from the file: one step at lr 0 with EMA (the trunk stays
+    # the file's, the EMA re-seeded from it), then 3 steps at the default lr
+    kw = dict(dataroot=str(root), nepochs=2, bsz=4, nworkers=6, fused_dw=True,
+              val_step=0, save_step=0, viz_step=0, iou_log_step=10,
+              seed=seed, device="cuda", pretrained_trunk=path)
+    dw0, splat0 = mbconv_cuda.launches, splat_cuda.launches
+    state = train(**kw, lr=0.0, weight_decay=0.0, ema_decay=0.999,
+                  max_steps=1, logdir=f"{tmp}/pretrained-lr0")["state"]
+    dw1, splat1 = mbconv_cuda.launches - dw0, splat_cuda.launches - splat0
+    assert dw1 == DW_PER_FORWARD, (
+        f"{dw1} depthwise launches for one train forward (want "
+        f"{DW_PER_FORWARD})")
+    assert splat1 >= 1, "train(pretrained_trunk=...) never launched the splat"
+    for k, v in trunk_params(state.model).items():
+        assert torch.equal(v, want[k]), f"trunk {k} moved at lr 0"
+    ema_worst = 0.0
+    for k, v in trunk_params(state.ema_model).items():
+        ema_worst = max(ema_worst, float((v - want[k]).abs().max())
+                        / max(float(want[k].abs().max()), 1e-30))
+    assert ema_worst <= EMA_RTOL, f"EMA trunk {ema_worst:.3e} from the file"
+    del state
+    with StepLosses() as rec:
+        train(**kw, max_steps=3, logdir=f"{tmp}/pretrained-steps")
+    losses = [float(v) for v in rec.losses]
+    assert len(losses) == 3 and all(map(math.isfinite, losses)), losses
+
+    # (d) resume overrides the file: phase 8's step-10 checkpoint, one step
+    # at lr 0, and the trunk is the checkpoint's
+    ckpt_path = f"{b0_run}/ckpts/model_000010.pt"
+    ck = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    out = train(**kw, lr=0.0, weight_decay=0.0, max_steps=11,
+                resume=ckpt_path, logdir=f"{tmp}/pretrained-resumed")
+    assert (out["start_counter"], out["counter"]) == (10, 11), out
+    resumed = trunk_params(out["state"].model)
+    for k, v in resumed.items():
+        assert torch.equal(v, ck["model_state_dict"][TRUNK + k]), k
+        assert not torch.equal(v, want[k]), f"{k} is the file's"
+    launches = {"splat": splat_cuda.launches,
+                "dw_conv_stats": mbconv_cuda.launches}  # the path ends here
+    print(f"pretrained trunk: a seeded efficientnet_pytorch B0 file "
+          f"({len(sd)} tensors, {len(sd) - len(want)} of them head and "
+          f"num_batches_tracked, skipped) merged into the full-width B0 on "
+          f"the card: {merged} trunk tensors bit-equal to the file, every "
+          f"other tensor untouched; served card vs CPU (bsz 1, uint8 "
+          f"images, f32, TF32 off): max |diff| {err:.3e}, tolerance "
+          f"{CPU_TOL} x {scale:.3f} (max(1, max |logit|)), max |logit| "
+          f"{logit_max:.4f}; "
+          f"train(pretrained_trunk=..., fused_dw, bsz 4, lr 0, EMA 0.999) "
+          f"one step: trunk parameters bit-equal to the file, the EMA's "
+          f"within {ema_worst:.3e} of it (limit {EMA_RTOL}), launches "
+          f"dw_conv_stats {dw1}, splat {splat1}; 3 steps at lr 1e-3: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; resume from phase 8's "
+          f"model_000010.pt with the file: continued at 10 to 11, the trunk "
+          f"the checkpoint's ({len(resumed)} parameters bit-equal, none the "
+          f"file's); launches over the phase: splat {launches['splat']}, "
+          f"dw_conv_stats {launches['dw_conv_stats']}; phase 25 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat, then its first 2 and 1
@@ -3298,7 +3456,12 @@ def main(argv=None) -> int:
         remat_launches = phase_remat(args.seed, card)
         at(24)
         export_launches = phase_export(tmp, args.seed)
-        at(25)  # the end
+
+        # 25. the pretrained trunk: merged, served, trained from, resumed
+        at(25)
+        pre_launches = phase_pretrained(tmp, root, b0_run, args.seed)
+        print(f"phases 1-25 took {time.perf_counter() - started:.1f} s",
+              flush=True)
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
           f"training + {stretch_launches['splat']} stretch (bf16) + "
@@ -3310,8 +3473,8 @@ def main(argv=None) -> int:
           f"ResNet + 0 explore + 0 int8 (eval mode) + "
           f"{nusc_launches['dw_conv_stats']} nuScenes; parallel paths (every "
           f"rank): {par_launches}; grid (every rank): {grid_launches}; remat: "
-          f"{remat_launches}; exported programs (splat): {export_launches}",
-          flush=True)
+          f"{remat_launches}; exported programs (splat): {export_launches}; "
+          f"pretrained trunk: {pre_launches}", flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def parallel_row(name):
@@ -3334,7 +3497,8 @@ def main(argv=None) -> int:
                              + int8_launches + nusc_launches["splat"]
                              + parallel_total("splat") + grid_launches["splat"]
                              + remat_launches["splat"]
-                             + sum(export_launches.values())),
+                             + sum(export_launches.values())
+                             + pre_launches["splat"]),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat"),
                 "b0_bf16": {"max_abs_err": b0_bf16[0], **b0_bf16[1]},
@@ -3342,7 +3506,8 @@ def main(argv=None) -> int:
                 "parallel_launches": parallel_row("splat"),
                 "grid_launches": grid_launches["splat"],
                 "remat_launches": remat_launches["splat"],
-                "export_launches": export_launches},
+                "export_launches": export_launches,
+                "pretrained_launches": pre_launches["splat"]},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",
@@ -3350,14 +3515,16 @@ def main(argv=None) -> int:
                              + nusc_launches["dw_conv_stats"]
                              + parallel_total("dw_conv_stats")
                              + grid_launches["dw_conv_stats"]
-                             + remat_launches["dw_conv_stats"]),
+                             + remat_launches["dw_conv_stats"]
+                             + pre_launches["dw_conv_stats"]),
                 "max_abs_err": dw_err, **dw_times,
                 "stretch_bf16": stretch_row("dw_conv_stats"),
                 "nuscenes": nusc_rows["dw_conv_stats"],
                 "parallel_launches": parallel_row("dw_conv_stats"),
                 "grid_launches": grid_launches["dw_conv_stats"],
                 "remat_launches": remat_launches["dw_conv_stats"],
-                "export_launches": 0}]
+                "export_launches": 0,
+                "pretrained_launches": pre_launches["dw_conv_stats"]}]
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

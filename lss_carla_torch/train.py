@@ -36,8 +36,12 @@ or one rank of a multi-host run under ``torchrun`` (``--multihost``):
     python -m lss_carla_torch.train --dataroot /data/SimBEV --n_devices 4 \
         --grid_devices 2 --bsz 8 --xbound -50 50 0.25 --ybound -50 50 0.25
 
-The JAX CLI's other flags are accepted only to say where they wait in
-``ROADMAP.md``: passing one exits with that message.
+From a pretrained trunk (an ``efficientnet_pytorch`` ImageNet file, a
+reference or port checkpoint, or ``auto``: the torch hub cache); a
+``--resume`` overrides it:
+
+    python -m lss_carla_torch.train --dataroot /data/SimBEV \
+        --pretrained_trunk ~/.cache/torch/hub/checkpoints/efficientnet-b0-355c32eb.pth
 """
 
 from __future__ import annotations
@@ -45,10 +49,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from lss_carla_torch.training.loop import UNPORTED, check_pretrained_trunk, train
-
-# train_simbev.py flags that wait in ROADMAP.md
-_UNPORTED_FLAGS = {k: item for k, (_, item) in UNPORTED.items()}
+from lss_carla_torch.training.loop import check_pretrained_trunk, train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,6 +87,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rand_flip", action="store_true", default=False)
     p.add_argument("--resume", type=str, default=None,
                    help="a checkpoint file, or a directory (its newest)")
+    p.add_argument("--pretrained_trunk", type=str, default=None,
+                   help="ImageNet-pretrained EfficientNet trunk: path to an "
+                        "efficientnet_pytorch .pth, a reference LSS .pt, a "
+                        "checkpoint of this port (model_*.pt or a ckpts/ "
+                        "directory), or \"auto\" to search the torch hub "
+                        "cache (the reference downloads these at "
+                        "src/models.py:43); --resume overrides it")
     p.add_argument("--use_wandb", action="store_true", default=False)
     p.add_argument("--wandb_project", type=str, default="lift-splat-shoot")
     p.add_argument("--wandb_name", type=str, default=None)
@@ -157,9 +165,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="restart the run up to N times after a watchdog "
                         "exit (code 42), resuming from <logdir>/ckpts once "
                         "it holds a checkpoint (pair with --watchdog_secs)")
-    for name in sorted(_UNPORTED_FLAGS):
-        p.add_argument(f"--{name}", nargs="*", default=None,
-                       help=argparse.SUPPRESS)
     return p
 
 
@@ -176,7 +181,8 @@ def train_kwargs(args) -> dict:
         rot_lim=tuple(args.rot_lim), rand_flip=args.rand_flip,
         xbound=tuple(args.xbound), ybound=tuple(args.ybound),
         zbound=tuple(args.zbound), dbound=tuple(args.dbound),
-        resume=args.resume, lr_schedule=args.lr_schedule,
+        resume=args.resume, pretrained_trunk=args.pretrained_trunk,
+        lr_schedule=args.lr_schedule,
         warmup_steps=args.warmup_steps, decay_steps=args.decay_steps,
         ema_decay=args.ema_decay, ema_bn_recal=args.ema_bn_recal,
         accum_steps=args.accum_steps, compute_dtype=args.compute_dtype,
@@ -202,10 +208,6 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     check_pretrained_trunk(args.pretrained_trunk, args.variant)
-    given = sorted(k for k in _UNPORTED_FLAGS if getattr(args, k) is not None)
-    if given:
-        parser.error("not ported to lss_carla_torch yet: " + "; ".join(
-            f"--{k} (ROADMAP.md {UNPORTED[k][1]})" for k in given))
     if args.supervise > 0:
         from lss_carla_torch.utils.supervise import run_supervised
         return run_supervised(args.supervise, args.logdir,

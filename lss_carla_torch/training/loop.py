@@ -43,9 +43,13 @@ same file on resume. A signal on any rank stops every rank at the same
 step: each step ends with a MAX all-reduce of the ranks' signal flags on
 a host group. Each rank has its own watchdog.
 
-Flags of the JAX trainer that the port does not have yet raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item (``UNPORTED``);
-none is ignored.
+``pretrained_trunk`` starts the camera trunk from an ``efficientnet_pytorch``
+ImageNet file, a reference LSS checkpoint or one of the port's
+(``utils/convert.py::trunk_state_dict_from_checkpoint``), merged in place
+after the weights are made and before ``resume``, which overrides it; the
+EMA is re-seeded from the merged weights. Every rank loads the file itself.
+
+Every keyword of the JAX trainer is here, and none is ignored.
 """
 
 from __future__ import annotations
@@ -84,26 +88,9 @@ from lss_carla_torch.training.watchdog import WATCHDOG_EXIT, StallWatchdog
 from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.checkpoint import (CheckpointManager, load_checkpoint,
                                               read_best_val_iou)
+from lss_carla_torch.utils.convert import (merge_trunk_state_dict,
+                                           trunk_state_dict_from_checkpoint)
 from lss_carla_torch.utils.logging import MetricLogger, NullLogger
-
-# keyword of the JAX trainer -> (its values that mean "off", the ROADMAP.md
-# item by its title: the items' numbers change as the queue moves)
-UNPORTED = {
-    "pretrained_trunk": ((None,), "§A, --pretrained_trunk"),
-}
-
-
-def check_unported(**kwargs) -> None:
-    """Raise for every keyword of ``UNPORTED`` set to anything but off."""
-    unknown = sorted(set(kwargs) - set(UNPORTED))
-    if unknown:
-        raise TypeError(f"train() got unexpected keyword arguments {unknown}")
-    on = {k: v for k, v in kwargs.items() if v not in UNPORTED[k][0]}
-    if on:
-        raise NotImplementedError(
-            "not ported to lss_carla_torch yet: " + "; ".join(
-                f"{k}={v!r} (ROADMAP.md {UNPORTED[k][1]})"
-                for k, v in sorted(on.items())))
 
 
 def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
@@ -342,6 +329,10 @@ def train(
     val_step: int = 500,
     save_step: int = 1000,
     resume: Optional[str] = None,     # a checkpoint file, or a directory
+    pretrained_trunk: Optional[str] = None,  # an ImageNet trunk file, a
+                                      # reference or port checkpoint (file
+                                      # or ckpts/ dir), or "auto" (the torch
+                                      # hub cache); resume overrides it
     # observability
     use_wandb: bool = False,
     wandb_project: str = "lift-splat-shoot",
@@ -390,13 +381,11 @@ def train(
                                       # (parallel/grid.py); n_devices /
                                       # grid_devices data ranks
     device="cuda",
-    **unported,
 ):
     """Train LSS on SimBEV or nuScenes (``dataset``) on one device or, with
     ``n_devices`` > 1, on several ranks (the module docstring); the JAX
-    trainer's keywords, minus those in ``UNPORTED`` (which raise unless
-    off), plus ``use_native``. With several ranks on a GPU, rank r runs on
-    ``cuda:<local rank>`` whatever index ``device`` names. nuScenes takes only
+    trainer's keywords plus ``use_native``. With several ranks on a GPU,
+    rank r runs on ``cuda:<local rank>`` whatever index ``device`` names. nuScenes takes only
     ``label_mode="vehicle_binary"`` and no ``extrinsic_noise``, as in JAX. ``device`` is "cuda"
     unless the caller asks for the CPU; no GPU raises. Weights are drawn
     from a generator seeded ``seed``, and ``torch.manual_seed(seed)`` seeds
@@ -410,10 +399,8 @@ def train(
     that spawned its ranks returns rank 0's, with "state" None and the
     trained weights as "model_state_dict" (and "ema_state_dict" with
     EMA), on the CPU."""
-    kwargs = {k: v for k, v in locals().items() if k != "unported"}
-    kwargs.update(unported)
-    check_pretrained_trunk(unported.get("pretrained_trunk"), variant)
-    check_unported(**unported)
+    kwargs = dict(locals())
+    check_pretrained_trunk(pretrained_trunk, variant)
     if dataset not in ("simbev", "nuscenes"):
         raise ValueError(f"unknown dataset: {dataset!r}")
     if dataset == "nuscenes":
@@ -549,6 +536,15 @@ def train(
     log_lr = lr_schedule != "constant" or warmup_steps
     print(f"Number of trainable parameters: "
           f"{sum(p.numel() for p in model.parameters()):,}")
+    if pretrained_trunk is not None:
+        # in place: the optimizer, the EMA and the parallel steps hold the
+        # model's tensors. Before (and overridden by) resume, as the
+        # reference's from_pretrained at build, then the checkpoint load
+        merge_trunk_state_dict(model, trunk_state_dict_from_checkpoint(
+            pretrained_trunk, variant))
+        if state.ema_model is not None:  # seeded from the random init
+            state.ema_model.load_state_dict(model.state_dict())
+        print(f"Loaded pretrained trunk from {pretrained_trunk}")
     if mesh is None:
         train_fn = make_train_step(model, pos_weight, accum_steps=accum_steps,
                                    ema_decay=ema_decay, device=dev)

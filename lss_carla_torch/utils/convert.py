@@ -19,19 +19,31 @@ with ``load_state_dict``:
   ``_conv_head``/``_bn1``/``_fc`` and the ``dx``/``bx``/``nx``/``frustum``
   constants, which the port rebuilds from its config).
 
+The pretrained trunk (``train(pretrained_trunk=...)``, reference
+``src/models.py:43``): ``trunk_state_dict_from_checkpoint(path, variant)``
+reads an ``efficientnet_pytorch`` ImageNet file, a reference LSS ``.pt`` or
+one of the port's checkpoints into the trunk's state dict
+(``imagenet_trunk_state_dict``), and ``merge_trunk_state_dict`` copies it
+into a model's ``camencode.trunk``. The trunk's module names are
+``efficientnet_pytorch``'s, so no tensor is renamed or transposed.
+
 A map entry is torch name -> (flax path, collection).
 """
 
 from __future__ import annotations
 
+import glob
+import os
 import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from lss_carla_torch.models.efficientnet import block_plan
+from lss_carla_torch.models.efficientnet import (EfficientNetTrunk, VARIANTS,
+                                                 block_plan, round_filters)
 from lss_carla_torch.models.resnet import RESNET_LAYERS
+from lss_carla_torch.utils.checkpoint import latest_checkpoint
 
 Path = Tuple[str, ...]
 NameMap = Dict[str, Tuple[Path, str]]
@@ -196,3 +208,129 @@ def reference_state_dict(state_dict) -> dict:
         nbt = k[:-len("running_mean")] + "num_batches_tracked"
         out.setdefault(nbt, torch.tensor(0, dtype=torch.long))
     return out
+
+
+# ImageNet files from efficientnet_pytorch carry the classifier head
+# (_conv_head/_bn1/_fc) that the reference never runs: skipped, with every
+# num_batches_tracked. ^_bn1\. matches only the head's BN, not a block's
+# _blocks.N._bn1.
+_IMAGENET_SKIP = re.compile(
+    r"(num_batches_tracked|^_conv_head\.|^_bn1\.|^_fc\.)")
+_TRUNK = "camencode.trunk."
+
+
+def imagenet_trunk_state_dict(state_dict, variant: str = "b0") -> dict:
+    """A bare ``efficientnet_pytorch`` state dict (the file
+    ``EfficientNet.from_pretrained`` downloads) -> the EfficientNet trunk's
+    state dict without ``num_batches_tracked``, CPU tensors. A name that is
+    neither skipped nor in ``trunk_name_map(variant)`` raises ``KeyError``
+    (a file of a deeper variant); a missing one is the merge's to report."""
+    names = trunk_name_map(variant)
+    out, unmapped = {}, []
+    for k, v in state_dict.items():
+        if _IMAGENET_SKIP.search(k):
+            continue
+        if k not in names:
+            unmapped.append(k)
+            continue
+        out[k] = torch.as_tensor(v).detach().cpu()
+    if unmapped:
+        raise KeyError(f"unmapped reference tensors: {unmapped[:10]}"
+                       f"{'...' if len(unmapped) > 10 else ''}")
+    return out
+
+
+def trunk_state_dict_from_checkpoint(path: str, variant: str = "b0") -> dict:
+    """The EfficientNet trunk's state dict from any supported source:
+
+    * ``"auto"``: the last, sorted, of
+      ``~/.cache/torch/hub/checkpoints/efficientnet-{variant}-*.pth``, where
+      ``EfficientNet.from_pretrained`` stores its download;
+    * a torch file holding a bare ImageNet state dict, or a reference LSS
+      checkpoint or one of the port's (``camencode.trunk.`` keys, raw or
+      under ``model_state_dict``; the trained weights, never
+      ``ema_state_dict``);
+    * a directory of the port's checkpoints (``ckpts/``): its newest
+      (``utils/checkpoint.py::latest_checkpoint``).
+
+    Files load with ``weights_only=True``."""
+    if path == "auto":
+        pattern = os.path.expanduser(
+            f"~/.cache/torch/hub/checkpoints/efficientnet-{variant}-*.pth")
+        hits = sorted(glob.glob(pattern))
+        if not hits:
+            raise FileNotFoundError(
+                f"pretrained_trunk='auto': no file matches {pattern}")
+        path = hits[-1]
+    if os.path.isdir(path):
+        found = latest_checkpoint(path)
+        if found is None:
+            raise FileNotFoundError(f"no checkpoint in {path}")
+        path = found
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(sd, dict):
+        raise ValueError(f"{path}: not a state dict or checkpoint "
+                         f"({type(sd).__name__})")
+    if "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    if any(k.startswith(_TRUNK) for k in sd):
+        sd = {k[len(_TRUNK):]: v for k, v in sd.items() if k.startswith(_TRUNK)}
+    return imagenet_trunk_state_dict(sd, variant)
+
+
+@torch.no_grad()
+def merge_trunk_state_dict(model, trunk_sd: dict) -> None:
+    """Copy ``trunk_sd`` into ``model.camencode.trunk`` in place, each value
+    cast to the model tensor's dtype and device; the model's own
+    ``num_batches_tracked`` and everything outside the trunk stay. Names
+    and shapes are checked first: a mismatch (another variant) raises
+    ``ValueError`` with both listings and changes nothing."""
+    own = {k: v for k, v in model.camencode.trunk.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    own_shapes = {k: tuple(v.shape) for k, v in own.items()}
+    new_shapes = {k: tuple(v.shape) for k, v in trunk_sd.items()}
+    if own_shapes != new_shapes:
+        diff = sorted(k for k in own_shapes.keys() | new_shapes.keys()
+                      if own_shapes.get(k) != new_shapes.get(k))
+        raise ValueError(
+            "pretrained trunk does not match the model's trunk names/shapes "
+            f"(first differences: {diff[:5]}):\nmodel: {own_shapes}\n"
+            f"loaded: {new_shapes}")
+    for k, v in own.items():
+        v.copy_(trunk_sd[k])
+
+
+def synthetic_imagenet_state_dict(variant: str = "b0", seed: int = 0) -> dict:
+    """A seeded stand-in for an ``efficientnet_pytorch`` ImageNet file, for
+    tests and the chip script: every trunk tensor under its name and
+    layout, plus what the import skips (``num_batches_tracked`` and the
+    classifier head ``_conv_head``, ``_bn1``, ``_fc``). Its values keep an
+    eval forward finite and in range: He-scaled convs, BN scales in [0.5,
+    1.5], running variances in [0.5, 2] (a normal draw, as JAX's test
+    file makes, gives negative variances and a NaN forward)."""
+    rng = np.random.default_rng(seed)
+    shapes = {k: tuple(v.shape) for k, v in
+              EfficientNetTrunk(variant).state_dict().items()}
+    head = round_filters(1280, VARIANTS[variant][0])
+    shapes.update({"_conv_head.weight": (head, block_plan(variant)[-1]["cout"],
+                                         1, 1),
+                   "_fc.weight": (1000, head), "_fc.bias": (1000,)})
+    for k in ("weight", "bias", "running_mean", "running_var",
+              "num_batches_tracked"):
+        shapes[f"_bn1.{k}"] = () if k == "num_batches_tracked" else (head,)
+    sd = {}
+    for k, shape in shapes.items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(int(rng.integers(1, 10 ** 6)))
+            continue
+        if len(shape) == 4:  # conv: He-scaled over its fan-in
+            fan_in = int(np.prod(shape[1:]))
+            a = rng.normal(0.0, np.sqrt(2.0 / fan_in), shape)
+        elif k.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, shape)
+        elif k.endswith(".weight") and len(shape) == 1:  # a BN scale
+            a = rng.uniform(0.5, 1.5, shape)
+        else:  # biases, running means, the classifier
+            a = rng.normal(0.0, 0.1, shape)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd

@@ -57,7 +57,9 @@ def test_import_pulls_in_no_jax():
             "lss_carla_torch.parallel.camera",
             "lss_carla_torch.parallel.dryrun", "lss_carla_torch.parallel.halo",
             "lss_carla_torch.parallel.grid", "lss_carla_torch.ops.library",
-            "lss_carla_torch.serving", "lss_carla_torch.server"} <= set(modules)
+            "lss_carla_torch.serving", "lss_carla_torch.server",
+            "lss_carla_torch.utils.convert",
+            "lss_carla_torch.trunk_probe"} <= set(modules)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
@@ -100,8 +102,9 @@ def test_entry_points_raise_without_gpu(no_gpu, tmp_path):
 
 
 def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
-    """train(), the training CLI and the step factories default to cuda and
-    raise with no GPU, before reading any data."""
+    """train(), the training CLI, the trunk probe and the step factories
+    default to cuda and raise with no GPU, before reading or writing any
+    data."""
     from lss_carla_torch.train import main
     from lss_carla_torch.training.loop import train
     from lss_carla_torch.training.step import (make_eval_step,
@@ -111,6 +114,10 @@ def test_training_entry_points_raise_without_gpu(no_gpu, tmp_path):
         train(str(tmp_path / "nowhere"))
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         main(["--dataroot", str(tmp_path / "nowhere")])
+    from lss_carla_torch import trunk_probe
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        trunk_probe.main(["--workdir", str(tmp_path / "probe")])
+    assert not (tmp_path / "probe").exists()  # no fixture written first
     model = torch.nn.Linear(1, 1)
     for build in (make_train_step, make_eval_step, make_predict_step):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):

@@ -23,6 +23,8 @@ from lss_carla_torch.data.loader import DataLoader, compile_data
 from lss_carla_torch.parallel.dryrun import dryrun_multichip
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.utils.checkpoint import load_checkpoint
+from lss_carla_torch.utils.convert import (imagenet_trunk_state_dict,
+                                           synthetic_imagenet_state_dict)
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -165,6 +167,31 @@ def test_train_on_two_ranks(fixture_root, tmp_path, mode):
                         resume=ckpts)
         assert resumed["start_counter"] == 4 and resumed["counter"] == 6
         assert sorted(os.listdir(tmp_path / "r" / "ckpts")) == ["model_final.pt"]
+
+
+def test_two_ranks_start_from_the_pretrained_trunk(fixture_root, tmp_path):
+    """train(n_devices=2, pretrained_trunk=file) on two gloo ranks of one
+    group (``fused_dw``): each rank merges the file itself, to the same
+    trunk, before rank 0's weights are broadcast; after a step at lr 0
+    both ranks hold the file's trunk and every parameter and buffer is
+    bit-equal across them."""
+    from torch_parallel_ranks import run_ranks
+    sd = synthetic_imagenet_state_dict("slim", seed=21)
+    path = tmp_path / "efficientnet-slim-imagenet.pth"
+    torch.save(sd, path)
+    kwargs = dict(dataroot=str(fixture_root), **TINY, n_devices=2,
+                  fused_dw=True, lr=0.0, weight_decay=0.0, max_steps=1,
+                  val_step=0, save_step=0, viz_step=0,
+                  pretrained_trunk=str(path), logdir=str(tmp_path / "run"))
+    outs = run_ranks(tmp_path / "ranks", 2, "pretrained_train",
+                     {"kwargs": kwargs})
+    assert [len(o["merged"]) for o in outs] == [1, 1]
+    assert outs[0]["merged"] == outs[1]["merged"]
+    assert outs[0]["digest"] == outs[1]["digest"]
+    want = imagenet_trunk_state_dict(sd, "slim")
+    for out in outs:
+        for k, v in out["trunk"].items():
+            assert torch.equal(v, want[k]), k
 
 
 def test_multihost_launch_agrees_on_a_signal():

@@ -376,9 +376,16 @@ def test_empty_val_set_matches_jax(fixture_root, tmp_path, monkeypatch):
 
 def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path,
                                              monkeypatch):
-    from lss_carla_torch.training.loop import UNPORTED
-    assert set(UNPORTED) == {"pretrained_trunk"}
-    with pytest.raises(NotImplementedError, match="§A, --pretrained_trunk"):
+    # every keyword of the JAX trainer is one of train()'s, none refused:
+    # pretrained_trunk reaches the import ("auto" with an empty hub cache)
+    import inspect
+    from lss_carla_tpu.training.loop import train as jax_train
+    from lss_carla_torch.training import loop
+    assert not hasattr(loop, "UNPORTED")
+    assert set(inspect.signature(train).parameters) - set(
+        inspect.signature(jax_train).parameters) == {"device", "use_native"}
+    monkeypatch.setenv("HOME", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="no file matches"):
         train(fixture_root, **TINY, pretrained_trunk="auto", logdir=str(tmp_path))
     # with a ResNet trunk the JAX trainer's own check comes first
     with pytest.raises(ValueError, match="no import source exists for the resnet"):
@@ -423,9 +430,27 @@ def test_train_refuses_what_it_does_not_port(fixture_root, tmp_path,
         train(fixture_root, **TINY, accum_steps=7, logdir=str(tmp_path))
     with pytest.raises(ValueError, match="accum_steps"):
         make_train_step(torch.nn.Linear(1, 1), accum_steps=0, device="cpu")
+    # --pretrained_trunk trains: at lr 0 the final checkpoint's trunk is
+    # the file's (the CLI's variants start at b0)
     from lss_carla_torch.train import main
-    with pytest.raises(SystemExit):
-        main(["--dataroot", str(fixture_root), "--pretrained_trunk", "auto"])
+    from lss_carla_torch.utils.convert import (imagenet_trunk_state_dict,
+                                               synthetic_imagenet_state_dict)
+    sd = synthetic_imagenet_state_dict("b0", seed=4)
+    torch.save(sd, tmp_path / "efficientnet-b0-imagenet.pth")
+    assert main(["--dataroot", str(fixture_root), "--device", "cpu",
+                 "--H", "64", "--W", "128", "--final_h", "32", "--final_w", "64",
+                 "--xbound", "-50", "50", "6.25", "--ybound", "-50", "50", "6.25",
+                 "--dbound", "4", "36", "8", "--bsz", "2", "--nworkers", "1",
+                 "--lr", "0", "--weight_decay", "0", "--max_steps", "1",
+                 "--val_step", "0", "--save_step", "0", "--viz_step", "0",
+                 "--logdir", str(tmp_path / "cli"), "--pretrained_trunk",
+                 str(tmp_path / "efficientnet-b0-imagenet.pth")]) == 0
+    final = load_checkpoint(tmp_path / "cli" / "ckpts" / "model_final.pt")
+    trained = {k: v for k, v in final["model_state_dict"].items()
+               if k.startswith("camencode.trunk.")}
+    for k, v in imagenet_trunk_state_dict(sd, "b0").items():
+        if not k.endswith(("running_mean", "running_var")):  # train-mode BN
+            assert torch.equal(trained["camencode.trunk." + k], v), k
     with pytest.raises(ValueError, match="divisible by grid_devices=2"):
         main(["--dataroot", str(fixture_root), "--grid_devices", "2",
               "--device", "cpu"])

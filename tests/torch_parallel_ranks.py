@@ -27,11 +27,13 @@ from lss_carla_torch.parallel.grid import (grid_axis,
                                            shard_batch_grid)
 from lss_carla_torch.parallel.mesh import (check_replicated, init_process,
                                            make_mesh, make_mesh_2d,
-                                           make_mesh_grid, shard_batch)
+                                           make_mesh_grid, shard_batch,
+                                           state_digest)
 from lss_carla_torch.parallel.step import (make_sharded_eval_step,
                                            make_sharded_train_step,
                                            reduce_train)
 from lss_carla_torch.training.bn_recal import recalibrate_bn
+from lss_carla_torch.training import loop
 from lss_carla_torch.training.loop import get_val_info
 from lss_carla_torch.training.loss import bce_with_logits
 from lss_carla_torch.training.state import create_train_state
@@ -223,3 +225,22 @@ def grid(rank: int, p: dict) -> dict:
                 mesh, tuple(np.roll(a, i, 0) for a in p["batch"]))))
         out["digest"] = check_replicated(model, mesh)
     return out
+
+
+def pretrained_train(rank: int, p: dict) -> dict:
+    """``train(**p["kwargs"])`` as this rank of the group, recording the
+    trunk's digest right after this rank's own merge of the file (before
+    rank 0's weights are broadcast); returns it with the whole model's
+    digest and the trunk's parameters at the end."""
+    merged = []
+    real = loop.merge_trunk_state_dict
+
+    def merge(model, trunk_sd):
+        real(model, trunk_sd)
+        merged.append(state_digest(model.camencode.trunk))
+
+    loop.merge_trunk_state_dict = merge
+    model = loop.train(**p["kwargs"])["state"].model
+    return {"merged": merged, "digest": state_digest(model),
+            "trunk": {k: v.detach().clone()
+                      for k, v in model.camencode.trunk.named_parameters()}}

@@ -8,6 +8,11 @@ PIL decode and numpy release the GIL, and threads need no fork or pickling.
 pulls host batches and pins them, and the consumer copies each to the
 device with ``non_blocking`` on its own thread, so the copy overlaps the
 step before it.
+
+Spans (``utils/trace.py``; recorded only while a profiler records):
+``lss.loader.sample`` a sample (read, decode, augment, label, on a pool
+thread), ``lss.loader.collate`` a batch, and ``lss.loader.pin`` a batch
+(``prefetch_to_device``'s producer).
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from lss_carla_torch.utils.trace import span
 
 
 def _collate(items):
@@ -102,16 +109,21 @@ class DataLoader:
         valid = valid[self.shard_index::self.num_shards]
         return [(order[s:s + b], valid[s:s + b]) for s in range(0, len(order), b)]
 
+    def _sample(self, i: int):
+        with span("lss.loader.sample"):
+            return self.dataset[i]
+
     def _assemble(self, samples, valid):
-        batch = _collate(samples)
-        return batch + (valid.astype(np.float32),) if self.pad_last else batch
+        with span("lss.loader.collate"):
+            batch = _collate(samples)
+            return batch + (valid.astype(np.float32),) if self.pad_last else batch
 
     def __iter__(self) -> Iterator:
         batches = self._batch_indices()
         self._epoch += 1
         if self.num_workers == 0:
             for idx, valid in batches:
-                yield self._assemble([self.dataset[int(i)] for i in idx], valid)
+                yield self._assemble([self._sample(int(i)) for i in idx], valid)
             return
         # one executor; a sliding window of per-sample futures keeps
         # prefetch_batches batches in flight; the finally (exhaustion or
@@ -123,7 +135,7 @@ class DataLoader:
 
             def submit(batch):
                 idx, valid = batch
-                return [executor.submit(self.dataset.__getitem__, int(i))
+                return [executor.submit(self._sample, int(i))
                         for i in idx], valid
 
             for _ in range(self.prefetch_batches):
@@ -184,10 +196,11 @@ def prefetch_to_device(iterator, device, size: int = 2):
     def producer():
         try:
             for batch in iterator:
-                host = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                             for a in batch)
-                if pin:
-                    host = tuple(t.pin_memory() for t in host)
+                with span("lss.loader.pin"):
+                    host = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                                 for a in batch)
+                    if pin:
+                        host = tuple(t.pin_memory() for t in host)
                 if not put(host):
                     return
         except BaseException as e:  # re-raised on the consumer's side

@@ -24,6 +24,13 @@ Two serving modes:
   requests. Handler threads only validate and enqueue numpy arrays; a
   single batcher thread owns every device call.
 
+Spans (``utils/trace.py``; recorded only while a profiler records): each
+handler thread emits ``lss.serve.read`` (the body off the socket, which
+waits for the client's send), ``lss.serve.parse`` (``np.load`` and
+validation) and ``lss.serve.reply`` (the 200's npz and send) a request; the
+batcher emits ``lss.serve.fill``, ``lss.serve.assemble`` and
+``lss.serve.predict`` a batch.
+
     python -m lss_carla_torch.server --artifact /models/lss.pt --port 8471
 """
 
@@ -40,6 +47,7 @@ import numpy as np
 import torch
 
 from lss_carla_torch.serving import INPUT_NAMES, load_predict
+from lss_carla_torch.utils.trace import span
 
 
 def _numpy(x) -> np.ndarray:
@@ -61,7 +69,9 @@ class PredictService:
                           for a in example_args]
         return _numpy(self._predict(*example_args))
 
-    def predict(self, arrays):
+    def validate(self, arrays) -> list:
+        """The six inputs of a request, in order; ValueError where one is
+        missing or off the accepted signature."""
         missing = [n for n in INPUT_NAMES if n not in arrays]
         if missing:
             raise ValueError(f"missing inputs: {missing}")
@@ -72,6 +82,10 @@ class PredictService:
                 raise ValueError(
                     f"signature mismatch: got {got}, expected "
                     f"{self.signature} (the artifact has static shapes)")
+        return args
+
+    def run(self, args):
+        """The logits of validated inputs."""
         t0 = time.perf_counter()
         out = _numpy(self._predict(*args))
         ms = (time.perf_counter() - t0) * 1000.0
@@ -117,9 +131,9 @@ class BatchingPredictService(PredictService):
     the logits. A request that arrives alone still flushes after
     ``flush_ms``, bounding added latency.
 
-    Thread contract: ``predict`` (handler threads) does numpy + queueing
-    only and blocks on a per-request event; ``_loop`` (the one batcher
-    thread) is the only code that touches the device.
+    Thread contract: ``validate`` and ``run`` (handler threads) do numpy +
+    queueing only and block on a per-request event; ``_loop`` (the one
+    batcher thread) is the only code that touches the device.
     """
 
     def __init__(self, artifact_path: str, max_batch: int,
@@ -162,12 +176,12 @@ class BatchingPredictService(PredictService):
         self.batches = self.batched_samples = 0  # warmup is not traffic
         return out
 
-    def predict(self, arrays):
+    def validate(self, arrays) -> list:
         missing = [n for n in INPUT_NAMES if n not in arrays]
         if missing:
             raise ValueError(f"missing inputs: {missing}")
         args = [np.asarray(arrays[n]) for n in INPUT_NAMES]
-        b = args[0].shape[0] if args[0].ndim else 0
+        b = self._rows(args)
         if self.signature is not None:
             # per-sample validation: trailing dims + dtype must match the
             # artifact; the batch dim may be anything in 1..max_batch
@@ -182,7 +196,14 @@ class BatchingPredictService(PredictService):
                     f"signature mismatch: got {got}, expected per-sample "
                     f"{per_sample} (coalescing server, artifact batch "
                     f"{self.max_batch})")
-        req = self._submit(args, b)
+        return args
+
+    @staticmethod
+    def _rows(args) -> int:
+        return args[0].shape[0] if args[0].ndim else 0
+
+    def run(self, args):
+        req = self._submit(args, self._rows(args))
         ms = (time.perf_counter() - req.t0) * 1000.0
         with self._stats_lock:  # handler threads update these concurrently
             self.requests += 1
@@ -237,19 +258,22 @@ class BatchingPredictService(PredictService):
 
     def _loop(self):
         while True:
-            batch = self._take_batch()
+            with span("lss.serve.fill"):
+                batch = self._take_batch()
             if not batch:
                 return
             try:
                 total = sum(r.n for r in batch)
-                cols = [np.concatenate([r.args[i] for r in batch], axis=0)
-                        for i in range(len(INPUT_NAMES))]
-                pad = self.max_batch - total
-                if pad:
-                    cols = [np.concatenate(
-                        [c, np.repeat(c[-1:], pad, axis=0)], axis=0)
-                        for c in cols]
-                logits = _numpy(self._predict(*cols))
+                with span("lss.serve.assemble"):
+                    cols = [np.concatenate([r.args[i] for r in batch], axis=0)
+                            for i in range(len(INPUT_NAMES))]
+                    pad = self.max_batch - total
+                    if pad:
+                        cols = [np.concatenate(
+                            [c, np.repeat(c[-1:], pad, axis=0)], axis=0)
+                            for c in cols]
+                with span("lss.serve.predict"):
+                    logits = _numpy(self._predict(*cols))
                 off = 0
                 for r in batch:
                     r.result = logits[off:off + r.n]
@@ -294,24 +318,44 @@ def make_handler(service: PredictService):
             else:
                 self._send(404, b"not found", "text/plain")
 
+        def _read(self):
+            """(the request's body, None), or (None, the body of the 400
+            that refuses it)."""
+            try:
+                n = int(self.headers.get("Content-Length", 0))
+            except (TypeError, ValueError):
+                return None, b"bad Content-Length header"
+            try:
+                return self.rfile.read(n), None
+            except Exception as e:
+                return None, f"unreadable npz payload: {e}".encode()
+
+        def _parse(self, body):
+            """(the request's validated inputs, None), or (None, the body
+            of the 400 that refuses it)."""
+            try:
+                arrays = dict(np.load(io.BytesIO(body), allow_pickle=False))
+            except Exception as e:   # truncated/corrupt npz -> BadZipFile
+                return None, f"unreadable npz payload: {e}".encode()
+            try:
+                return service.validate(arrays), None
+            except ValueError as e:
+                return None, str(e).encode()
+
         def do_POST(self):
             if self.path != "/predict":
                 self._send(404, b"not found", "text/plain")
                 return
-            try:
-                n = int(self.headers.get("Content-Length", 0))
-            except (TypeError, ValueError):
-                self._send(400, b"bad Content-Length header", "text/plain")
+            with span("lss.serve.read"):
+                body, refusal = self._read()
+            if refusal is None:
+                with span("lss.serve.parse"):
+                    args, refusal = self._parse(body)
+            if refusal is not None:
+                self._send(400, refusal, "text/plain")
                 return
             try:
-                arrays = dict(np.load(io.BytesIO(self.rfile.read(n)),
-                                      allow_pickle=False))
-            except Exception as e:   # truncated/corrupt npz -> BadZipFile
-                self._send(400, f"unreadable npz payload: {e}".encode(),
-                           "text/plain")
-                return
-            try:
-                logits = service.predict(arrays)
+                logits = service.run(args)
             except ValueError as e:
                 self._send(400, str(e).encode(), "text/plain")
                 return
@@ -319,7 +363,8 @@ def make_handler(service: PredictService):
                 self._send(500, f"{type(e).__name__}: {e}".encode(),
                            "text/plain")          # drop the connection
                 return
-            self._send(200, _npz_bytes(logits=logits))
+            with span("lss.serve.reply"):
+                self._send(200, _npz_bytes(logits=logits))
 
     return Handler
 

@@ -21,9 +21,10 @@ Observability and unattended runs, as in the JAX trainer: figures of
 sample 0 every ``viz_step`` steps and after each validation
 (``utils/viz.py`` through ``MetricLogger.figure``; only the rendering and
 logging are guarded, the prediction is not), wandb, a ``torch.profiler``
-trace of the run (``profile_dir``), the stall watchdog (``watchdog_secs``,
-``training/watchdog.py``) and background periodic checkpoints
-(``async_save``).
+trace of the run (``profile_dir``; every thread's spans where torch has
+``profile_all_threads``, so the loader's beside the step's), the stall
+watchdog (``watchdog_secs``, ``training/watchdog.py``) and background
+periodic checkpoints (``async_save``).
 
 Parallel modes (``n_devices`` > 1; ``parallel/``): one process a device.
 On one host ``train`` starts its ranks itself (``torch.multiprocessing``,
@@ -91,6 +92,7 @@ from lss_carla_torch.utils.checkpoint import (CheckpointManager, load_checkpoint
 from lss_carla_torch.utils.convert import (merge_trunk_state_dict,
                                            trunk_state_dict_from_checkpoint)
 from lss_carla_torch.utils.logging import MetricLogger, NullLogger
+from lss_carla_torch.utils.trace import all_threads_config
 
 
 def check_pretrained_trunk(pretrained_trunk, variant: str) -> None:
@@ -687,7 +689,8 @@ def train(
         activities = [ProfilerActivity.CPU] + (
             [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
         prof = profile(activities=activities,
-                       on_trace_ready=tensorboard_trace_handler(profile_dir))
+                       on_trace_ready=tensorboard_trace_handler(profile_dir),
+                       experimental_config=all_threads_config())
         prof.start()
     print("Starting training...")
     stop = False

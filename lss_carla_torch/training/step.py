@@ -11,6 +11,11 @@ there.
 The parallel steps (``parallel/step.py``, ``parallel/camera.py``) are
 these steps with two hooks: ``forward`` replaces the model's forward on
 the six inputs, and ``reduce`` runs the step's collectives.
+
+The train step emits the spans ``lss.step`` (the whole step),
+``lss.step.forward`` and ``lss.step.backward`` (once a microbatch) and
+``lss.step.update`` (clip, Adam and the EMA); like every span of
+``utils/trace.py``, they record only while a profiler records.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from lss_carla_torch.training.loss import (bce_with_logits,
                                            masked_eval_metrics)
 from lss_carla_torch.training.state import ema_update
 from lss_carla_torch.utils.backend import resolve_device
+from lss_carla_torch.utils.trace import span
 
 
 def to_device(batch, device: torch.device):
@@ -57,14 +63,20 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
     forward = forward or model
 
     def micro_step(micro):
-        logits = forward(*micro[:6])
+        with span("lss.step.forward"):
+            logits = forward(*micro[:6])
         binimgs = micro[6]
         loss = bce_with_logits(logits, binimgs, pos_weight)
-        loss.backward()
+        with span("lss.step.backward"):
+            loss.backward()
         intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
         return loss.detach(), intersect, union
 
     def train_step(state, batch):
+        with span("lss.step"):
+            return step(state, batch)
+
+    def step(state, batch):
         batch = to_device(batch[:7], dev)
         model.train()
         state.optimizer.zero_grad()
@@ -83,10 +95,11 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
         metrics = {"loss": loss, "intersect": intersect, "union": union}
         if reduce is not None:
             metrics = reduce(state, metrics)
-        grad_norm = state.optimizer.step(state.step)
-        state.step += 1
-        if ema_decay > 0:
-            ema_update(state, ema_decay)
+        with span("lss.step.update"):
+            grad_norm = state.optimizer.step(state.step)
+            state.step += 1
+            if ema_decay > 0:
+                ema_update(state, ema_decay)
         return {**metrics, "grad_norm": grad_norm}
 
     return train_step

@@ -52,7 +52,8 @@ exits non-zero without the final result line:
 8. training at full width through the port's own ``train()``: B0 at the
    default config on a synthetic SimBEV fixture (224 x 480 sources), bsz 4,
    ``fused_dw``, 20 steps with a validation and a checkpoint every 10; the
-   kernels' launch counters, zeroed just before, must show 16 depthwise
+   kernels' launch counters, zeroed just before, with what the train
+   step's CUDA graph replayed (``issued``), must show 16 depthwise
    launches per train-mode forward and the splat; every logged loss is
    finite; the checkpoints exist, a resume from step 10 continues at 10,
    and ``model_best.pt`` is exported and answers one HTTP request;
@@ -76,7 +77,8 @@ exits non-zero without the final result line:
     bf16, ``fused_dw``, cosine with warm-up, EMA 0.999 with BN
     recalibration, two microbatches of bsz 4 a step, on a synthetic
     fixture with 400 x 400 labels: the kernels' launch counters by dtype,
-    zeroed just before, show only bf16 launches, 32 depthwise launches a
+    zeroed just before, with the step graph's replays, show only bf16
+    launches, 32 depthwise launches a
     train-mode forward (the recalibration's included) and the splat;
     losses finite, ``val/iou`` and ``val/iou_raw`` logged, checkpoints
     carry ``ema_state_dict``, a resume continues at the saved counter, and
@@ -260,6 +262,7 @@ from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
 from lss_carla_torch.serving import _main as export_cli
 from lss_carla_torch.training import loop
+from lss_carla_torch.training import step as step_graph
 from lss_carla_torch.training.bn_recal import recalibrate_bn
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.training.loss import bce_with_logits
@@ -288,6 +291,26 @@ CPU_TOL = 1e-3             # x max(1, max |logit|), absolute
 def reset_launches() -> None:
     splat_cuda.reset_launches()
     mbconv_cuda.reset_launches()
+    step_graph.reset_replayed()
+
+
+def issued_by_dtype(kernel: str) -> dict:
+    """{dtype: ``kernel``'s ("splat" or "dw_conv_stats") kernels issued on
+    the card since ``reset_launches``}: what its wrapper launched and what
+    the train step's graph replays launched (each what its capture
+    recorded, ``training/step.py::replayed``; the card tests hold those
+    to the profiler's device activities)."""
+    wrapper = {"splat": splat_cuda, "dw_conv_stats": mbconv_cuda}[kernel]
+    return {k: v + step_graph.replayed[kernel][k]
+            for k, v in wrapper.launches_by_dtype.items()}
+
+
+def issued(kernel: str) -> int:
+    return sum(issued_by_dtype(kernel).values())
+
+
+def replayed(kernel: str) -> int:
+    return sum(step_graph.replayed[kernel].values())
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -964,7 +987,8 @@ def phase_training(tmp, seed):
     reset_launches()  # the main path starts here
     t0 = time.perf_counter()
     result = train(**kw, max_steps=TRAIN_STEPS, logdir=run)
-    dw_launches, splat_launches = mbconv_cuda.launches, splat_cuda.launches
+    dw_launches, splat_launches = issued("dw_conv_stats"), issued("splat")
+    dw_replayed, splat_replayed = replayed("dw_conv_stats"), replayed("splat")
     train_s = time.perf_counter() - t0  # the main path ends here
     assert result["counter"] == TRAIN_STEPS, result["counter"]
     assert dw_launches == DW_PER_FORWARD * TRAIN_STEPS, (
@@ -1007,8 +1031,9 @@ def phase_training(tmp, seed):
           f"checkpoints included); losses {loss_txt}; val {val_txt}; "
           f"launches: dw_conv_stats {dw_launches} (= {DW_PER_FORWARD} x "
           f"{TRAIN_STEPS} train forwards), splat {splat_launches} ({TRAIN_STEPS} train + "
-          f"{splat_launches - TRAIN_STEPS} validation and val-figure forwards); "
-          f"checkpoints "
+          f"{splat_launches - TRAIN_STEPS} validation and val-figure forwards), of "
+          f"them replayed by the step's graph: dw_conv_stats {dw_replayed}, splat "
+          f"{splat_replayed}; checkpoints "
           f"{sorted(ckpts)}; resume from model_000010.pt continued at "
           f"{resumed['start_counter']} to {resumed['counter']}; model_best.pt "
           f"(step {ck['counter']}, val IoU {ck['val_iou']:.4f}) exported and "
@@ -1406,8 +1431,8 @@ def phase_stretch_training(tmp, seed):
     one = inputs(np.random.default_rng(seed), 1, uint8=True)
     with Running(serve(art, port=0, device="cuda")) as base:
         got = post(base, one)
-    launches = {"dw_conv_stats": dict(mbconv_cuda.launches_by_dtype),
-                "splat": dict(splat_cuda.launches_by_dtype)}
+    launches = {k: issued_by_dtype(k) for k in ("dw_conv_stats", "splat")}
+    graph = {k: replayed(k) for k in launches}
     # the stretch path ends here
     assert got.dtype == np.float32 and got.shape == (1, STRETCH_CLASSES, 400, 400)
     assert np.isfinite(got).all(), "non-finite served logits"
@@ -1431,8 +1456,8 @@ def phase_stretch_training(tmp, seed):
               r["val/loss"], r["val/iou"], r["val/loss_raw"], r["val/iou_raw"])
               for r in vals)
           + f"; launches by dtype: dw_conv_stats {launches['dw_conv_stats']} (= "
-          f"{DW_B4} x {forwards} train-mode forwards), splat {launches['splat']}; "
-          f"every checkpoint carries ema_state_dict; resume from step 5 "
+          f"{DW_B4} x {forwards} train-mode forwards), splat {launches['splat']}, "
+          f"of them replayed by the step's graph {graph}; every checkpoint carries ema_state_dict; resume from step 5 "
           f"continued to {resumed['counter']}; model_best.pt exported --ema "
           f"--compute_dtype bfloat16 and served one request: f32 logits "
           f"{got.shape[1:]}, finite, max |served - direct| {served_gap:.3e}; "
@@ -1636,7 +1661,7 @@ def phase_resnet(tmp, root, rng, seed, card):
     t0 = time.perf_counter()
     with FigureCalls() as figs:
         result = train(**kw, max_steps=RESNET_STEPS, logdir=run)
-    train_launches, dw = splat_cuda.launches, mbconv_cuda.launches
+    train_launches, dw = issued("splat"), issued("dw_conv_stats")
     train_s = time.perf_counter() - t0  # and ends here
     assert result["counter"] == RESNET_STEPS, result["counter"]
     assert dw == 0, f"a ResNet model launched dw_conv_stats {dw} times"
@@ -2175,15 +2200,15 @@ def phase_nuscenes(tmp, seed, gen):
         save_step=NUSC_STEPS, iou_log_step=1, viz_step=0, seed=seed,
         dataset="nuscenes", logdir=run, device="cuda")
     train_s = time.perf_counter() - t0
-    dw_train, splat_train = mbconv_cuda.launches, splat_cuda.launches
+    dw_train, splat_train = issued("dw_conv_stats"), issued("splat")
     info = explore.eval_model_iou(str(root), f"{run}/ckpts", best=True,
                                   dataset="nuscenes", bsz=NUSC_BSZ,
                                   nworkers=6, device="cuda")
     samples, extent = explore.model_preds(
         str(root), f"{run}/ckpts", best=True, dataset="nuscenes",
         max_batches=2, bsz=NUSC_BSZ, device="cuda")
-    launches = {"splat": splat_cuda.launches,
-                "dw_conv_stats": mbconv_cuda.launches}  # the path ends here
+    launches = {"splat": issued("splat"),
+                "dw_conv_stats": issued("dw_conv_stats")}  # the path ends here
     assert result["counter"] == NUSC_STEPS, result["counter"]
     assert dw_train == DW_PER_FORWARD * NUSC_STEPS, dw_train
     assert splat_train > NUSC_STEPS, splat_train  # train + val forwards
@@ -3195,10 +3220,10 @@ def phase_pretrained(tmp: str, root, b0_run: str, seed: int) -> dict:
     kw = dict(dataroot=str(root), nepochs=2, bsz=4, nworkers=6, fused_dw=True,
               val_step=0, save_step=0, viz_step=0, iou_log_step=10,
               seed=seed, device="cuda", pretrained_trunk=path)
-    dw0, splat0 = mbconv_cuda.launches, splat_cuda.launches
+    dw0, splat0 = issued("dw_conv_stats"), issued("splat")
     state = train(**kw, lr=0.0, weight_decay=0.0, ema_decay=0.999,
                   max_steps=1, logdir=f"{tmp}/pretrained-lr0")["state"]
-    dw1, splat1 = mbconv_cuda.launches - dw0, splat_cuda.launches - splat0
+    dw1, splat1 = issued("dw_conv_stats") - dw0, issued("splat") - splat0
     assert dw1 == DW_PER_FORWARD, (
         f"{dw1} depthwise launches for one train forward (want "
         f"{DW_PER_FORWARD})")
@@ -3227,8 +3252,8 @@ def phase_pretrained(tmp: str, root, b0_run: str, seed: int) -> dict:
     for k, v in resumed.items():
         assert torch.equal(v, ck["model_state_dict"][TRUNK + k]), k
         assert not torch.equal(v, want[k]), f"{k} is the file's"
-    launches = {"splat": splat_cuda.launches,
-                "dw_conv_stats": mbconv_cuda.launches}  # the path ends here
+    launches = {"splat": issued("splat"),
+                "dw_conv_stats": issued("dw_conv_stats")}  # the path ends here
     print(f"pretrained trunk: a seeded efficientnet_pytorch B0 file "
           f"({len(sd)} tensors, {len(sd) - len(want)} of them head and "
           f"num_batches_tracked, skipped) merged into the full-width B0 on "

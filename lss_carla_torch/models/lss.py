@@ -39,7 +39,7 @@ from lss_carla_torch.models.bevencode import BevEncode
 from lss_carla_torch.models.camencode import CamEncode
 from lss_carla_torch.models.layers import init_weights, remat
 from lss_carla_torch.ops.geometry import create_frustum, gen_dx_bx, get_geometry
-from lss_carla_torch.ops.image import normalize_uint8
+from lss_carla_torch.ops.image import imagenet_stats, normalize_uint8
 from lss_carla_torch.ops.splat import METHODS, voxel_pooling
 from lss_carla_torch.utils.backend import resolve_device
 
@@ -71,6 +71,13 @@ class LiftSplatShoot(nn.Module):
         # not in the state dict: rebuilt from the config
         self.register_buffer("frustum", torch.from_numpy(frustum.copy()),
                              persistent=False)
+        # nor the forward's other constants, kept on the model's device so
+        # that a forward copies nothing from the host (the capture of the
+        # train step's CUDA graph refuses such a copy)
+        for name, value in (("grid_dx", torch.from_numpy(self.dx.copy())),
+                            ("grid_bx", torch.from_numpy(self.bx.copy())),
+                            *zip(("img_mean", "img_std"), imagenet_stats())):
+            self.register_buffer(name, value, persistent=False)
         self.D = frustum.shape[0]
         self.camencode = CamEncode(self.D, camC, variant, fused_dw, dtype)
         self.bevencode = BevEncode(int(self.nx[2]) * camC, outC, dtype)
@@ -96,14 +103,15 @@ class LiftSplatShoot(nn.Module):
         images to the compute dtype."""
         B, N = x.shape[:2]
         x = x.reshape(B * N, *x.shape[2:])
-        x = normalize_uint8(x) if x.dtype == torch.uint8 else x
+        if x.dtype == torch.uint8:
+            x = normalize_uint8(x, self.img_mean, self.img_std)
         lifted, _ = self._encode(self.camencode, x)  # (BN, D, fH, fW, camC)
         return lifted.view(B, N, *lifted.shape[1:])
 
     def get_voxels(self, x, rots, trans, intrins, post_rots, post_trans):
         geom = self.get_geometry(rots, trans, intrins, post_rots, post_trans)
         feats = self.get_cam_feats(x)
-        return voxel_pooling(geom, feats, self.dx, self.bx, self.nx,
+        return voxel_pooling(geom, feats, self.grid_dx, self.grid_bx, self.nx,
                              method=self.splat_method)  # (B, X, Y, nz*camC)
 
     def decode_bev(self, bev):

@@ -11,6 +11,8 @@ align_corners=True)`` computes the same function.
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -33,12 +35,23 @@ def denormalize_img(x: np.ndarray) -> np.ndarray:
     return np.clip(np.asarray(x) * IMAGENET_STD + IMAGENET_MEAN, 0.0, 1.0)
 
 
-def normalize_uint8(x: torch.Tensor) -> torch.Tensor:
+def imagenet_stats() -> Tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet's mean and std as (3, 1, 1) f32 CPU tensors, for a module
+    to hold as buffers (``models/lss.py``)."""
+    return tuple(torch.from_numpy(v.copy()).view(3, 1, 1)
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
+def normalize_uint8(x: torch.Tensor, mean: Optional[torch.Tensor] = None,
+                    std: Optional[torch.Tensor] = None) -> torch.Tensor:
     """uint8 (..., 3, H, W) images -> f32 ImageNet-normalised, channels
-    first (reference ToTensor + Normalize, tools.py:167-171)."""
-    shape = (3, 1, 1)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=x.device).view(shape)
-    std = torch.as_tensor(IMAGENET_STD, device=x.device).view(shape)
+    first (reference ToTensor + Normalize, tools.py:167-171). ``mean`` and
+    ``std``, (3, 1, 1) f32 on x's device, are ``imagenet_stats()`` as a
+    model holds them, so that the call copies nothing from the host (a
+    CUDA graph's capture refuses such a copy); without them they are made
+    here."""
+    if mean is None or std is None:
+        mean, std = (t.to(x.device) for t in imagenet_stats())
     return (x.to(torch.float32) / 255.0 - mean) / std
 
 

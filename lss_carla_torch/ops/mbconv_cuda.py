@@ -14,8 +14,12 @@ the kernel does not take: a CPU tensor goes to the plain version
 
 ``launches`` counts the wrapper's calls that launched the kernel in this
 process, and ``launches_by_dtype`` the same calls by x's dtype;
-``chip_smoke.py`` sets both to 0 (``reset_launches``) before it drives a
-path and reads them after.
+``captured_by_dtype`` counts the calls made while a CUDA graph was being
+captured on the current stream, which recorded the kernel into the graph
+and launched nothing (the graph's replays launch it: the train step
+counts those, ``training/step.py::replayed``). ``chip_smoke.py`` sets
+them to 0 (``reset_launches``) before it drives a path and reads them
+after.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from lss_carla_torch.ops._nvcc import NvccLibrary
 
 launches = 0          # kernel launches in this process (plain int)
 launches_by_dtype = {"float32": 0, "bfloat16": 0}  # the same, by input dtype
+captured_by_dtype = {"float32": 0, "bfloat16": 0}  # recorded into a graph
 
 STRIP = 4             # outputs a thread computes side by side (kStrip)
 MAX_THREADS = 256     # threads a block, at most (kMaxThreads)
@@ -53,11 +58,25 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launches() -> None:
-    """Set ``launches`` and every ``launches_by_dtype`` count to 0."""
+    """Set ``launches`` and every ``launches_by_dtype`` and
+    ``captured_by_dtype`` count to 0."""
     global launches
     launches = 0
-    for key in launches_by_dtype:
-        launches_by_dtype[key] = 0
+    for counts in (launches_by_dtype, captured_by_dtype):
+        for key in counts:
+            counts[key] = 0
+
+
+def _count(dtype: torch.dtype) -> None:
+    """Count one call that ran the kernel: a launch, or, under a stream
+    capture, a kernel recorded into the graph."""
+    global launches
+    key = str(dtype).removeprefix("torch.")
+    if torch.cuda.is_current_stream_capturing():
+        captured_by_dtype[key] += 1
+    else:
+        launches += 1
+        launches_by_dtype[key] += 1
 
 
 def same_pad_amounts(n: int, k: int, s: int) -> Tuple[int, int]:
@@ -185,7 +204,6 @@ def dw_conv_stats_forward(x: torch.Tensor, w: torch.Tensor, stride: int):
     the JAX package casts them). One launch a call and nothing else on the
     card when w is f32 and contiguous. CUDA tensors only; raises on
     anything the kernel does not take."""
-    global launches
     if not (x.is_cuda and w.is_cuda):
         raise ValueError("dw_conv_stats_forward takes CUDA tensors; CPU "
                          "tensors go to ops.mbconv.dw_conv_stats_reference")
@@ -227,6 +245,5 @@ def dw_conv_stats_forward(x: torch.Tensor, w: torch.Tensor, stride: int):
             pl.pad_w, pl.tw, pl.tiles_w, pl.sw, pl.rg, pl.th, pl.bands,
             pl.pb, pl.pitch, pl.rawstride, pl.threads, stream)
     LIB.check(rc, "dw_conv_stats kernel")
-    launches += 1
-    launches_by_dtype[str(x.dtype).removeprefix("torch.")] += 1
+    _count(x.dtype)
     return y, sums, sumsq

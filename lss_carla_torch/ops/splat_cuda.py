@@ -30,8 +30,12 @@ the plain version in the caller, never here.
 
 ``launches`` counts ``splat_forward``'s calls that launched a kernel (one
 a call), and ``launches_by_dtype`` the same by the features' dtype;
-``chip_smoke.py`` sets both to 0 (``reset_launches``) before it drives a
-path and reads them after.
+``captured_by_dtype`` counts the calls made while a CUDA graph was being
+captured on the current stream, which recorded the kernel into the graph
+and launched nothing (the graph's replays launch it: the train step
+counts those, ``training/step.py::replayed``). ``chip_smoke.py`` sets
+them to 0 (``reset_launches``) before it drives a path and reads them
+after.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from lss_carla_torch.ops._nvcc import NvccLibrary
 
 launches = 0          # kernel launches in this process (plain int)
 launches_by_dtype = {"float32": 0, "bfloat16": 0}  # the same, by input dtype
+captured_by_dtype = {"float32": 0, "bfloat16": 0}  # recorded into a graph
 
 TILE = 176            # points a block of the f32 tile kernel sorts (kTile)
 SEG_SLOTS = 256       # slots a segment, one block's output rows (kSegSlots)
@@ -127,11 +132,25 @@ def _scratch(device: torch.device, stream: int, plan: SplatPlan):
 
 
 def reset_launches() -> None:
-    """Set ``launches`` and every ``launches_by_dtype`` count to 0."""
+    """Set ``launches`` and every ``launches_by_dtype`` and
+    ``captured_by_dtype`` count to 0."""
     global launches
     launches = 0
-    for key in launches_by_dtype:
-        launches_by_dtype[key] = 0
+    for counts in (launches_by_dtype, captured_by_dtype):
+        for key in counts:
+            counts[key] = 0
+
+
+def _count(dtype: torch.dtype) -> None:
+    """Count one call that ran the kernel: a launch, or, under a stream
+    capture, a kernel recorded into the graph."""
+    global launches
+    key = str(dtype).removeprefix("torch.")
+    if torch.cuda.is_current_stream_capturing():
+        captured_by_dtype[key] += 1
+    else:
+        launches += 1
+        launches_by_dtype[key] += 1
 
 
 def _check(pts: torch.Tensor, ids: torch.Tensor, num_slots: int) -> int:
@@ -208,13 +227,11 @@ def splat_forward(pts: torch.Tensor, ids: torch.Tensor,
     the input dtype. Ids outside [0, num_slots) are dropped. f32 takes the
     tile kernel, bf16 the segment kernel (the faster of the two in each
     dtype on the H100, PERF.md). CUDA tensors only; raises on anything the
-    kernels do not take. One count a call."""
-    global launches
+    kernels do not take. One count a call (``_count``)."""
     _check(pts, ids, num_slots)
     route = tiles_forward if pts.dtype == torch.float32 else segments_forward
     out = route(pts, ids, num_slots)
     if pts.numel() == 0:
         return out
-    launches += 1
-    launches_by_dtype[str(pts.dtype).removeprefix("torch.")] += 1
+    _count(pts.dtype)
     return out

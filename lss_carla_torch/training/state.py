@@ -15,7 +15,10 @@ the moments, as ``add_decayed_weights`` does. The clip is optax's: scale by
 (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm and is not used).
 The schedule's value for update ``count`` (0 for the first) is set as the
 learning rate before each step, as optax's ``scale_by_learning_rate``
-reads its count.
+reads its count. On a CUDA card the learning rate is a 0-d f32 tensor
+there, which ``set_lr`` writes, and Adam keeps its step count and bias
+correction there too (``capturable``): an update then reads no host value,
+so the CUDA graph of the step (``training/step.py``) can replay it.
 
 EMA (``ema_decay > 0``): ``TrainState.ema_model`` is a copy of the model
 whose parameters and BN running stats hold the exponential moving average
@@ -101,10 +104,19 @@ def clip_by_global_norm_(tensors: List[torch.Tensor],
     return norm
 
 
+def _capturable(params: List[torch.Tensor]) -> bool:
+    """Whether Adam keeps its learning rate and step count on the
+    parameters' device: on a CUDA card."""
+    return bool(params) and params[0].is_cuda
+
+
 class Optimizer:
-    """The optax chain above over ``params``. ``step(count)`` clips the
-    gradients, sets the learning rate ``schedule(count)`` and takes one
-    Adam step; it returns the gradients' global norm before clipping."""
+    """The optax chain above over ``params``. ``step(count)`` sets the
+    learning rate ``schedule(count)`` (``set_lr``), then clips the gradients
+    and takes one Adam step (``update``); it returns the gradients' global
+    norm before clipping. ``lr`` is the learning rate Adam reads: a float,
+    or on the card a 0-d tensor there; ``last_lr`` the host value last
+    set."""
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float,
                  weight_decay: float, max_grad_norm: float,
@@ -112,28 +124,69 @@ class Optimizer:
         self.params = [p for p in params if p.requires_grad]
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=weight_decay)
+        self.capturable = _capturable(self.params)
+        self.last_lr = float(lr)
+        self.lr = (torch.tensor(self.last_lr, device=self.params[0].device)
+                   if self.capturable else self.last_lr)
+        self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay,
+                                     capturable=self.capturable)
+        self._bind()
+
+    def _bind(self) -> None:
+        """Every group reads ``lr`` and keeps its step counts where
+        ``capturable`` says (a loaded state dict brings its own)."""
+        for group in self.adam.param_groups:
+            group["lr"], group["capturable"] = self.lr, self.capturable
+        if self.capturable:
+            for p in self.params:
+                st = self.adam.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device, torch.float32)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
 
-    def step(self, count: int) -> torch.Tensor:
+    def set_lr(self, count: int) -> None:
+        """Set the learning rate for update ``count``: on the card a fill of
+        the tensor, with the value in the launch, so it is ordered with
+        the updates before and after it."""
+        self.last_lr = float(self.schedule(count))
+        if torch.is_tensor(self.lr):
+            self.lr.fill_(self.last_lr)
+        else:
+            for group in self.adam.param_groups:
+                group["lr"] = self.last_lr
+
+    def update(self) -> torch.Tensor:
+        """Clip the gradients and take one Adam step at the learning rate
+        set; returns the global norm before clipping. No host sync."""
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.max_grad_norm and self.max_grad_norm > 0:
             norm = clip_by_global_norm_(grads, self.max_grad_norm)
         else:
             norm = global_norm(grads)
-        for group in self.adam.param_groups:
-            group["lr"] = self.schedule(count)
         self.adam.step()
         return norm
 
+    def step(self, count: int) -> torch.Tensor:
+        self.set_lr(count)
+        return self.update()
+
     def state_dict(self) -> dict:
-        return self.adam.state_dict()
+        """Adam's state dict, with the learning rate as the host float last
+        set (as a checkpoint has always held it)."""
+        state = self.adam.state_dict()
+        for group in state["param_groups"]:
+            group["lr"] = self.last_lr
+        return state
 
     def load_state_dict(self, state: dict) -> None:
+        """Load Adam's state in place of the present one (new moment
+        tensors), bound again to this optimizer's ``lr``."""
         self.adam.load_state_dict(state)
+        self.last_lr = float(state["param_groups"][0]["lr"])
+        self._bind()
 
 
 def make_optimizer(params: Iterable[nn.Parameter], lr: float = 1e-3,
@@ -169,18 +222,33 @@ def averaged_tensors(model: nn.Module) -> List[torch.Tensor]:
         if name.endswith((".running_mean", ".running_var"))]
 
 
+def ema_decay_at(decay: float, t: int) -> float:
+    """The EMA's warm-up ramp: ``min(decay, (1 + t) / (10 + t))`` at
+    update count ``t``."""
+    t = float(t)
+    return min(decay, (1.0 + t) / (10.0 + t))
+
+
 @torch.no_grad()
-def ema_update(state: TrainState, decay: float) -> None:
+def ema_update(state: TrainState, decay: float,
+               d: Optional[torch.Tensor] = None) -> None:
     """One EMA step over the (already updated) model, in place:
     ``ema <- d ema + (1 - d) x`` for every averaged tensor, with the
-    warm-up ramp ``d = min(decay, (1 + t) / (10 + t))``, t = ``state.step``:
-    the update count after this step, 1 at the first (the JAX package
-    reads flax's step after ``apply_gradients`` has advanced it)."""
-    t = float(state.step)
-    d = min(decay, (1.0 + t) / (10.0 + t))
-    ema = averaged_tensors(state.ema_model)
+    warm-up ramp ``d = ema_decay_at(decay, t)``, t = ``state.step``: the
+    update count after this step, 1 at the first (the JAX package reads
+    flax's step after ``apply_gradients`` has advanced it).
+
+    ``d`` given (a 0-d f32 tensor on the model's device, which the CUDA
+    graph of the step writes before each replay) replaces the host value:
+    the same products, with ``1 - d`` computed on the device."""
+    if d is None:
+        d = ema_decay_at(decay, state.step)
+    ema, model = averaged_tensors(state.ema_model), averaged_tensors(state.model)
     torch._foreach_mul_(ema, d)
-    torch._foreach_add_(ema, averaged_tensors(state.model), alpha=1.0 - d)
+    if torch.is_tensor(d):
+        torch._foreach_add_(ema, torch._foreach_mul(model, 1.0 - d))
+    else:
+        torch._foreach_add_(ema, model, alpha=1.0 - d)
 
 
 def create_train_state(model: nn.Module, lr: float = 1e-3,

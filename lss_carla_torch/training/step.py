@@ -2,32 +2,71 @@
 ``lss_carla_tpu/training/step.py`` (single device).
 
 One train step is the reference hot loop: geometry -> CamEncode -> lift ->
-splat -> BevEncode -> weighted BCE -> backward -> clip -> Adam, eagerly on
-the model's device. Metrics come back as device scalars and are synced
-only where the caller reads them. Every factory takes ``device`` ("cuda"
-unless the caller asks for the CPU; no GPU raises) and moves each batch
-there.
+splat -> BevEncode -> weighted BCE -> backward -> clip -> Adam, on the
+model's device. Metrics come back as device scalars and are synced only
+where the caller reads them. Every factory takes ``device`` ("cuda" unless
+the caller asks for the CPU; no GPU raises) and moves each batch there.
+
+On one card the train step runs as one CUDA graph (``_StepGraph``): its
+first call runs the step eagerly on a stream of its own and captures the
+whole of it (forward and loss of every microbatch, backward, the
+gradients' division, clip, Adam, EMA); every later call copies the batch
+into the graph's input buffers, writes the learning rate and the EMA
+decay into their device scalars, and replays it. The kernels are the
+eager step's, the two CUDA kernels of ``ops/`` among them. The step runs
+eagerly, as it always has, where a replay would not be the same step: on
+the CPU; with ``forward`` or ``reduce`` (the parallel modes, whose
+collectives stay eager); when the model rematerialises (``model.remat``);
+and while any module of the model has a forward, forward-pre or backward
+hook, or a global one is set (a hook runs Python that a replay skips). A
+batch of another shape or dtype than the graph's also runs eagerly. The
+graph captures again once anything it reads has been rebound (a
+parameter, buffer or Adam tensor replaced, as ``restore_train_state``
+does), or the state is another.
 
 The parallel steps (``parallel/step.py``, ``parallel/camera.py``) are
 these steps with two hooks: ``forward`` replaces the model's forward on
 the six inputs, and ``reduce`` runs the step's collectives.
 
 The train step emits the spans ``lss.step`` (the whole step),
-``lss.step.forward`` and ``lss.step.backward`` (once a microbatch) and
-``lss.step.update`` (clip, Adam and the EMA); like every span of
-``utils/trace.py``, they record only while a profiler records.
+``lss.step.forward`` and ``lss.step.backward`` (once a microbatch run on
+the host) and ``lss.step.update`` (clip, Adam and the EMA), and on the
+graph path ``lss.step.capture`` (a first call's eager step and capture)
+and ``lss.step.replay`` (a replay) inside ``lss.step``; like every span
+of ``utils/trace.py``, they record only while a profiler records.
 """
 
 from __future__ import annotations
 
+import gc
+
 import torch
 
+from lss_carla_torch.ops import mbconv_cuda, splat_cuda
 from lss_carla_torch.training.loss import (bce_with_logits,
                                            get_batch_iou_counts,
                                            masked_eval_metrics)
-from lss_carla_torch.training.state import ema_update
+from lss_carla_torch.training.state import ema_decay_at, ema_update
 from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.trace import span
+
+# the kernel wrappers whose calls a capture records, by kernel
+_COUNTED = {"splat": splat_cuda, "dw_conv_stats": mbconv_cuda}
+_HOOKS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
+          "_backward_pre_hooks")
+
+# launches of the hand-written kernels that replays of the step's graphs
+# issued in this process, by kernel and input dtype. A replay calls no
+# wrapper, so the wrappers' own counters count only what they launched;
+# each replay adds here what its graph recorded (``_StepGraph.held``).
+replayed = {name: {"float32": 0, "bfloat16": 0} for name in _COUNTED}
+
+
+def reset_replayed() -> None:
+    """Set every ``replayed`` count to 0."""
+    for counts in replayed.values():
+        for key in counts:
+            counts[key] = 0
 
 
 def to_device(batch, device: torch.device):
@@ -56,42 +95,47 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
 
     ``ema_decay > 0`` advances ``state.ema_model`` after the update
     (``training/state.py::ema_update``); the state must have been made with
-    ``create_train_state(..., ema_decay=...)``."""
+    ``create_train_state(..., ema_decay=...)``. On one card the step is a
+    CUDA graph where it can be (the module note); ``train_step.graph`` is
+    its ``_StepGraph`` (None where the step is always eager)."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     dev = resolve_device(device)
+    graphable = dev.type == "cuda" and forward is None and reduce is None
     forward = forward or model
+    # made once: a copy from the host inside the step would stop a capture
+    weight = torch.as_tensor(pos_weight, dtype=torch.float32, device=dev)
 
     def micro_step(micro):
         with span("lss.step.forward"):
             logits = forward(*micro[:6])
         binimgs = micro[6]
-        loss = bce_with_logits(logits, binimgs, pos_weight)
+        loss = bce_with_logits(logits, binimgs, weight)
         with span("lss.step.backward"):
             loss.backward()
         intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
         return loss.detach(), intersect, union
 
-    def train_step(state, batch):
-        with span("lss.step"):
-            return step(state, batch)
+    def gradients(state, batch):
+        """Forward, loss and backward of every microbatch into the
+        parameters' gradients: (loss, intersect, union)."""
+        if accum_steps == 1:
+            return micro_step(batch)
+        if batch[0].shape[0] != accum_steps:
+            raise ValueError(f"batch has {batch[0].shape[0]} microbatches, "
+                             f"accum_steps is {accum_steps}")
+        parts = [micro_step(tuple(x[i] for x in batch))
+                 for i in range(accum_steps)]
+        loss, intersect, union = (sum(p) for p in zip(*parts))
+        grads = [p.grad for p in state.optimizer.params if p.grad is not None]
+        torch._foreach_div_(grads, float(accum_steps))
+        return loss / accum_steps, intersect, union
 
     def step(state, batch):
         batch = to_device(batch[:7], dev)
         model.train()
         state.optimizer.zero_grad()
-        if accum_steps == 1:
-            loss, intersect, union = micro_step(batch)
-        else:
-            if batch[0].shape[0] != accum_steps:
-                raise ValueError(f"batch has {batch[0].shape[0]} microbatches, "
-                                 f"accum_steps is {accum_steps}")
-            parts = [micro_step(tuple(x[i] for x in batch))
-                     for i in range(accum_steps)]
-            loss, intersect, union = (sum(p) for p in zip(*parts))
-            loss = loss / accum_steps
-            grads = [p.grad for p in state.optimizer.params if p.grad is not None]
-            torch._foreach_div_(grads, float(accum_steps))
+        loss, intersect, union = gradients(state, batch)
         metrics = {"loss": loss, "intersect": intersect, "union": union}
         if reduce is not None:
             metrics = reduce(state, metrics)
@@ -102,7 +146,178 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
                 ema_update(state, ema_decay)
         return {**metrics, "grad_norm": grad_norm}
 
+    def captured(state, batch, decay):
+        """What the graph holds: the step after ``set_lr``, with the EMA
+        decay read from ``decay``."""
+        model.train()
+        loss, intersect, union = gradients(state, batch)
+        with span("lss.step.update"):
+            grad_norm = state.optimizer.update()
+            if ema_decay > 0:
+                ema_update(state, ema_decay, decay)
+        return {"loss": loss, "intersect": intersect, "union": union,
+                "grad_norm": grad_norm}
+
+    graph = _StepGraph(model, step, captured, ema_decay, dev) if graphable else None
+
+    def train_step(state, batch):
+        with span("lss.step"):
+            if graph is not None and graph.engages():
+                return graph(state, batch)
+            return step(state, batch)
+
+    train_step.graph = graph
     return train_step
+
+
+def _hooked(model) -> bool:
+    """Whether a hook would run Python in the model's forward or backward:
+    a global module hook, or one on any module of ``model``."""
+    glob = torch.nn.modules.module
+    if any(getattr(glob, "_global" + name, None) for name in _HOOKS):
+        return True
+    return any(getattr(m, name) for m in model.modules() for name in _HOOKS)
+
+
+def _bound(model, state) -> list:
+    """Everything a captured step reads or writes in place, in a fixed
+    order: the state's optimizer and EMA model, every parameter and buffer
+    of the model and the EMA model, the optimizer's learning rate and
+    whether each group reads it, and Adam's state tensors."""
+    out = [state.optimizer, state.ema_model]
+    for m in (model, state.ema_model):
+        for mod in () if m is None else m.modules():
+            out.extend(mod._parameters.values())
+            out.extend(mod._buffers.values())
+    adam = state.optimizer.adam
+    out.append(state.optimizer.lr)
+    out.extend(group["lr"] is state.optimizer.lr for group in adam.param_groups)
+    for p in state.optimizer.params:
+        out.append(p)
+        out.extend(adam.state.get(p, {}).values())
+    return out
+
+
+def _count_replay(held: dict) -> None:
+    """Add a replay's launches, what its capture recorded, to ``replayed``."""
+    for name, by in held.items():
+        for k, v in by.items():
+            replayed[name][k] += v
+
+
+def _captured() -> dict:
+    """{kernel: {dtype: calls its wrapper recorded into a graph}}."""
+    return {name: dict(m.captured_by_dtype) for name, m in _COUNTED.items()}
+
+
+class _StepGraph:
+    """The single-device train step as one CUDA graph.
+
+    The first call (and any call after a rebinding, below) runs the eager
+    step on this object's own stream, which is this call's step and warms
+    up everything a capture must find made (Adam's state, cuBLAS's
+    workspace, the kernels' per-stream scratch), then captures
+    ``captured`` on that stream into a graph with its own memory pool and
+    returns the eager step's metrics. The kernels' scratch stays keyed to
+    that stream, so no other caller grows or frees what the graph holds.
+    A later call with a batch of the captured shapes and dtypes copies it
+    into the input buffers, writes ``lr`` (``Optimizer.set_lr``) and the
+    EMA decay, replays the graph on the caller's stream and returns clones
+    of the graph's outputs, each call's own values. Dropout draws from
+    the default CUDA generator as the eager step does: a replay takes the
+    offsets the same launches would take eagerly.
+
+    The graph holds the addresses of everything in ``_bound``: a call whose
+    ``_bound`` differs (a tensor rebound, another state) captures again.
+    After a replay the parameters' ``grad`` are the graph's gradients,
+    clipped, as after an eager step. ``held`` is what the capture's calls
+    of the splat and depthwise wrappers recorded ({kernel: {dtype:
+    kernels}}, from their ``captured_by_dtype``); each replay adds it to
+    ``replayed``. ``captures`` and ``replays`` count this object's."""
+
+    def __init__(self, model, step, captured, ema_decay: float, dev):
+        self.model, self.step, self.captured = model, step, captured
+        self.ema_decay, self.dev = ema_decay, dev
+        self.stream = None
+        self.captures = self.replays = 0
+        self._drop()
+
+    def _drop(self) -> None:
+        """Let go of the graph and every tensor of its pool."""
+        self.graph = self.inputs = self.decay = self.out = None
+        self.grads = self.held = self.sig = None
+        self.bound = []
+
+    def engages(self) -> bool:
+        """Whether this call may run as the graph: no remat, no hook."""
+        return not getattr(self.model, "remat", False) and not _hooked(self.model)
+
+    def __call__(self, state, batch):
+        batch = tuple(torch.as_tensor(a) for a in batch[:7])
+        sig = tuple((t.shape, t.dtype) for t in batch)
+        live = _bound(self.model, state)
+        if self.graph is not None and len(live) == len(self.bound) and all(
+                a is b for a, b in zip(live, self.bound)):
+            if sig == self.sig:
+                return self._replay(state, batch)
+            return self.step(state, batch)
+        return self._capture(state, batch, sig)
+
+    def _capture(self, state, batch, sig):
+        with span("lss.step.capture"):
+            self._drop()
+            caller = torch.cuda.current_stream(self.dev)
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(self.dev)
+            self.stream.wait_stream(caller)
+            with torch.cuda.stream(self.stream):
+                metrics = self.step(state, batch)
+                warm = [p.grad for p in state.optimizer.params]
+                state.optimizer.zero_grad()      # the graph's own gradients
+                inputs = tuple(torch.empty_like(t, device=self.dev) for t in batch)
+                decay = torch.zeros((), dtype=torch.float32, device=self.dev)
+                before = _captured()
+                graph = torch.cuda.CUDAGraph()
+                # no cyclic collection inside the capture: freeing another
+                # graph there (its pool's memory) would end this capture
+                collecting = gc.isenabled()
+                gc.disable()
+                try:
+                    with torch.cuda.graph(graph, stream=self.stream,
+                                          capture_error_mode="thread_local"):
+                        out = self.captured(state, inputs, decay)
+                finally:
+                    if collecting:
+                        gc.enable()
+                held = {name: {k: v - before[name][k] for k, v in by.items()}
+                        for name, by in _captured().items()}
+            caller.wait_stream(self.stream)
+            self.grads = [p.grad for p in state.optimizer.params]
+            for p, g in zip(state.optimizer.params, warm):
+                p.grad = g
+            self.graph, self.inputs, self.decay, self.out = graph, inputs, decay, out
+            self.held, self.sig = held, sig
+            self.bound = _bound(self.model, state)
+            self.captures += 1
+            return metrics
+
+    def _replay(self, state, batch):
+        with span("lss.step.replay"):
+            for buf, t in zip(self.inputs, batch):
+                buf.copy_(t, non_blocking=True)
+            state.optimizer.set_lr(state.step)
+            if self.ema_decay > 0:
+                self.decay.fill_(ema_decay_at(self.ema_decay, state.step + 1))
+            if not self.model.training:
+                self.model.train()
+            self.graph.replay()
+            state.step += 1
+            for p, g in zip(state.optimizer.params, self.grads):
+                if p.grad is not g:
+                    p.grad = g
+            _count_replay(self.held)
+            self.replays += 1
+            return {k: v.clone() for k, v in self.out.items()}
 
 
 def make_eval_step(model, pos_weight=2.13, device="cuda", forward=None,

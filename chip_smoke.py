@@ -205,7 +205,22 @@ exits non-zero without the final result line:
     the file, the EMA within 1e-6 relative, 16 depthwise launches and the
     splat), then 3 steps at the default lr (finite losses); a resume from
     phase 8's step-10 checkpoint with the file, whose trunk is the
-    checkpoint's.
+    checkpoint's;
+26. BEVFusion's camera-only map segmentation at the ``bevfusion-seg-train``
+    cell's widths (``compile_bevfusion``: Swin-T over 6 x 256 x 704, D 118
+    at stride 8, a 256 x 256 lift grid, 200 x 200 x 6 out, bf16, bsz 4)
+    through ``create_train_state`` (AdamW 2e-4, decay 0.01, clip 35) and
+    ``make_train_step`` (the focal loss), 4 steps on the cell's batches
+    (the rig at 900 x 1600 resized by 0.48 and cropped at (32, 176)): the
+    first eager and captured, three replays. The launch counters, zeroed
+    just before, with the graph's replays, show one bf16 splat launch a
+    forward and no depthwise launch; the attention windows, 12 calls an
+    eager forward, the capture's windows on each replay; losses finite.
+    Then the splat on a train forward's own lifted features and voxel ids
+    (7.97 M points, 80 channels, 65,536 slots) against its plain version,
+    as phase 2 holds it (``check_splat``), and the replayed step profiled:
+    12 ``fmha_cutlassF`` and 12 ``fmha_cutlassB`` launches a step, every
+    block on SDPA's fused kernels.
 
 The last three lines are the card's name and power limit (``card: ...``),
 the kernels' JSON (name, route, source, TPU kernel replaced, launches on
@@ -247,10 +262,11 @@ from lss_carla_torch.data.fixtures_nuscenes import generate_nuscenes_fixture
 from lss_carla_torch.data.loader import compile_data
 from lss_carla_torch.data.nusc_maps import get_local_map
 from lss_carla_torch.data.nuscenes import NuScenesDataset, compile_data_nuscenes
+from lss_carla_torch.models import bevfusion as bevfusion_model
 from lss_carla_torch.models.efficientnet import MBConvBlock, block_plan
 from lss_carla_torch.models.lss import compile_model
 from lss_carla_torch.native import fastimage
-from lss_carla_torch.ops import mbconv_cuda, quant, splat_cuda
+from lss_carla_torch.ops import mbconv_cuda, quant, splat_cuda, window_attention
 from lss_carla_torch.ops.mbconv import (dw_conv_stats, dw_conv_stats_reference,
                                         same_pad)
 from lss_carla_torch.ops.splat import splat_reference, voxel_indices
@@ -3275,6 +3291,122 @@ def phase_pretrained(tmp: str, root, b0_run: str, seed: int) -> dict:
     return launches
 
 
+# the bevfusion-seg-train cell (benchmark/configs/bevfusion-cam-seg.json,
+# benchmark/traffic/staged-map6.json)
+BEV_GRID = GridConf(xbound=(-51.2, 51.2, 0.4), ybound=(-51.2, 51.2, 0.4),
+                    zbound=(-10.0, 10.0, 20.0), dbound=(1.0, 60.0, 0.5))
+BEV_AUG = DataAugConf(H=256, W=704, final_dim=(256, 704))
+BEV_S = 256 * 256
+BEV_BSZ, BEV_STEPS = 4, 4
+BEV_OCCUPANCY = (0.40, 0.03, 0.10, 0.01, 0.05, 0.03)  # MAP_CLASSES' order
+SWIN_BLOCKS = 12   # Swin-T's depths 2 + 2 + 6 + 2: one attention call each
+
+
+def bevfusion_batch(rng, gen):
+    """A batch of the cell's: uint8 images at 256 x 704, the rig at 900 x
+    1600 resized by 0.48 and cropped at (32, 176), and 200 x 200 labels of
+    the six classes at the cell's occupancies, on the card."""
+    cams = rig(rng, BEV_BSZ, 6, (900, 1600))
+    cams[3][..., :2, :2] *= 0.48
+    cams[4][..., 0], cams[4][..., 1] = -32.0, -176.0
+    imgs = torch.randint(0, 256, (BEV_BSZ, 6, 3, 256, 704), generator=gen,
+                         device="cuda", dtype=torch.uint8)
+    occ = torch.tensor(BEV_OCCUPANCY, device="cuda")
+    labels = (torch.rand((BEV_BSZ, len(occ), 200, 200), generator=gen, device="cuda")
+              < occ[:, None, None]).float()
+    return (imgs, *(torch.from_numpy(a).cuda() for a in cams), labels)
+
+
+def phase_bevfusion(seed: int, gen) -> tuple:
+    """Phase 26. Returns ({kernel: launches on the path}, check_splat's
+    (max error, times) at the cell's points)."""
+    t_phase = time.perf_counter()
+    model = bevfusion_model.compile_bevfusion(
+        BEV_GRID, BEV_AUG, device="cuda", compute_dtype="bfloat16",
+        generator=torch.Generator().manual_seed(seed))
+    state = create_train_state(model, lr=2e-4, weight_decay=0.01, max_grad_norm=35.0,
+                               lr_schedule="cosine", warmup_steps=500,
+                               decay_steps=17580, optimizer="adamw")
+    step = make_train_step(model, device="cuda")
+    assert step.loss == "sigmoid_focal" and step.graph is not None
+    rng = np.random.default_rng(seed)
+    batches = [bevfusion_batch(rng, gen) for _ in range(2)]
+    reset_launches()  # the BEVFusion path starts here
+    window_attention.reset_windows()
+    losses = []
+    for i in range(BEV_STEPS):
+        losses.append(float(step(state, batches[i % 2])["loss"]))
+        if i == 0:
+            per_forward = dict(window_attention.computed())
+    launches = {"splat": issued_by_dtype("splat"),
+                "dw_conv_stats": issued("dw_conv_stats")}  # the path ends here
+    graph = step.graph
+    assert (graph.captures, graph.replays) == (1, BEV_STEPS - 1), \
+        (graph.captures, graph.replays)
+    assert launches["splat"].get("bfloat16", 0) == BEV_STEPS == \
+        sum(launches["splat"].values()), f"splat launches {launches['splat']}"
+    assert launches["dw_conv_stats"] == 0, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    assert window_attention.calls == {"plain": SWIN_BLOCKS // 2, "shifted": SWIN_BLOCKS // 2}, \
+        window_attention.calls
+    assert graph.windows == per_forward and window_attention.computed() == {
+        k: BEV_STEPS * v for k, v in per_forward.items()}, (graph.windows, per_forward)
+    print(f"BEVFusion step (Swin-T, 6 x 256 x 704, D 118, 256 x 256, bf16, bsz "
+          f"{BEV_BSZ}, AdamW): {BEV_STEPS} steps, {graph.captures} capture and "
+          f"{graph.replays} replays, losses {[round(x, 4) for x in losses]}; "
+          f"splat launches {sum(launches['splat'].values())} (bf16, one a "
+          f"forward), dw_conv_stats 0; attention windows a forward {per_forward}, "
+          f"12 calls an eager forward", flush=True)
+
+    # the splat on a train forward's own lift and ids
+    taken = {}
+    pooling = bevfusion_model.voxel_pooling
+
+    def keep(geom, feats, *args, **kw):
+        taken["geom"], taken["feats"] = geom, feats
+        return pooling(geom, feats, *args, **kw)
+
+    bevfusion_model.voxel_pooling = keep
+    try:
+        with torch.no_grad():
+            model.train()(*batches[0][:6])
+    finally:
+        bevfusion_model.voxel_pooling = pooling
+    ids, _ = voxel_indices(taken["geom"], model.grid_dx, model.grid_bx, model.nx)
+    C = taken["feats"].shape[-1]
+    pts = taken["feats"].reshape(BEV_BSZ, -1, C).contiguous()
+    ids = ids.reshape(BEV_BSZ, -1).contiguous()
+    del taken
+    assert pts.dtype == torch.bfloat16 and pts.shape == (BEV_BSZ, 6 * 118 * 32 * 88, 80)
+    print(f"BEVFusion splat inputs (a train forward's lift, bsz {BEV_BSZ}, "
+          f"{pts.shape[0] * pts.shape[1]:,} points): "
+          f"{float((ids == BEV_S).float().mean()):.3f} of points at the sentinel; "
+          f"plan {splat_cuda.plan_splat(BEV_BSZ, pts.shape[1], BEV_S)}", flush=True)
+    splat_row = check_splat(f"BEVFusion bf16 S={BEV_S} bsz {BEV_BSZ}", pts, ids, BEV_S)
+    del pts, ids
+
+    # the backend of every block's attention, in a replayed step
+    dev = device_profile(lambda: step(state, batches[1]), n=2, windows=3)
+    if dev is None:
+        print("BEVFusion attention kernels: not measured (no profiler window saw "
+              "a device record)", flush=True)
+    else:
+        fused = {name: sum(c for key, (_, c) in dev.items() if name in key)
+                 for name in ("fmha_cutlassF", "fmha_cutlassB")}
+        assert all(c == SWIN_BLOCKS for c in fused.values()), \
+            f"fused attention launches a step {fused}: a block left SDPA's fused kernels"
+        busy = sum(ms for ms, _ in dev.values())
+        attn = sum(ms for key, (ms, _) in dev.items() if "fmha_cutlass" in key)
+        print(f"BEVFusion replayed step: {busy:.3f} ms of device time, "
+              f"{sum(c for _, c in dev.values())} device activities; "
+              f"attention kernels {fused} a step, {attn:.3f} ms "
+              f"({100 * attn / busy:.2f} %); phase 26 took "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return {"splat": BEV_STEPS, "dw_conv_stats": 0}, splat_row
+
+
 def main_path_splat(model, many):
     """Phase 2 on the main path's own inputs: the lift and geometry the
     bsz-8 served batch ``many`` gives the splat, then its first 2 and 1
@@ -3485,7 +3617,11 @@ def main(argv=None) -> int:
         # 25. the pretrained trunk: merged, served, trained from, resumed
         at(25)
         pre_launches = phase_pretrained(tmp, root, b0_run, args.seed)
-        print(f"phases 1-25 took {time.perf_counter() - started:.1f} s",
+
+        # 26. BEVFusion's step at the bevfusion-seg-train cell's widths
+        at(26)
+        bev_launches, bev_splat = phase_bevfusion(args.seed, gen)
+        print(f"phases 1-26 took {time.perf_counter() - started:.1f} s",
               flush=True)
 
     print(f"main-path launches: splat {launches} serving + {splat_train} "
@@ -3499,7 +3635,8 @@ def main(argv=None) -> int:
           f"{nusc_launches['dw_conv_stats']} nuScenes; parallel paths (every "
           f"rank): {par_launches}; grid (every rank): {grid_launches}; remat: "
           f"{remat_launches}; exported programs (splat): {export_launches}; "
-          f"pretrained trunk: {pre_launches}", flush=True)
+          f"pretrained trunk: {pre_launches}; BEVFusion: {bev_launches}",
+          flush=True)
     print(f"over the run: {profiler_note()}", flush=True)
 
     def parallel_row(name):
@@ -3523,7 +3660,7 @@ def main(argv=None) -> int:
                              + parallel_total("splat") + grid_launches["splat"]
                              + remat_launches["splat"]
                              + sum(export_launches.values())
-                             + pre_launches["splat"]),
+                             + pre_launches["splat"] + bev_launches["splat"]),
                 "max_abs_err": max_err, **times,
                 "stretch_bf16": stretch_row("splat"),
                 "b0_bf16": {"max_abs_err": b0_bf16[0], **b0_bf16[1]},
@@ -3532,7 +3669,9 @@ def main(argv=None) -> int:
                 "grid_launches": grid_launches["splat"],
                 "remat_launches": remat_launches["splat"],
                 "export_launches": export_launches,
-                "pretrained_launches": pre_launches["splat"]},
+                "pretrained_launches": pre_launches["splat"],
+                "bevfusion_bf16": {"launches": bev_launches["splat"],
+                                   "max_abs_err": bev_splat[0], **bev_splat[1]}},
                {"name": "dw_conv_stats", "route": "cuda",
                 "source": "lss_carla_torch/csrc/dw_conv_stats.cu",
                 "replaces": "lss_carla_tpu/ops/mbconv_pallas.py:145",

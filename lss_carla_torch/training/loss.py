@@ -3,6 +3,7 @@
 
 ``bce_with_logits`` is torch ``BCEWithLogitsLoss(pos_weight=w)``: the mean
 over all elements of ``w*y*softplus(-x) + (1-y)*softplus(x)``, in f32.
+``sigmoid_focal_loss`` is BEVFusion's map-segmentation loss.
 """
 
 from __future__ import annotations
@@ -51,6 +52,21 @@ class SimpleLoss:
 
     def __call__(self, ypred, ytgt):
         return bce_with_logits(ypred, ytgt, self.pos_weight)
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       gamma: float = 2.0) -> torch.Tensor:
+    """BEVFusion's loss of its map head (``BEVSegmentationHead`` with
+    ``loss: focal``, no alpha): for each class of (B, C, ...) logits, the
+    mean over its elements of ``(1 - p_t)^gamma * BCE``, p_t the sigmoid's
+    probability of the target; the classes' means summed. f32."""
+    logits = logits.to(torch.float32)
+    targets = targets.to(torch.float32)
+    p = torch.sigmoid(logits)
+    ce = F.binary_cross_entropy_with_logits(logits, targets, reduction="none")
+    p_t = p * targets + (1 - p) * (1 - targets)
+    loss = ce * (1 - p_t) ** gamma
+    return loss.transpose(0, 1).reshape(loss.shape[1], -1).mean(1).sum()
 
 
 def get_batch_iou_counts(logits: torch.Tensor, targets: torch.Tensor):

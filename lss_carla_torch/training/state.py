@@ -20,6 +20,11 @@ there, which ``set_lr`` writes, and Adam keeps its step count and bias
 correction there too (``capturable``): an update then reads no host value,
 so the CUDA graph of the step (``training/step.py``) can replay it.
 
+``optimizer="adamw"`` (BEVFusion's) takes torch's ``AdamW`` in Adam's
+place: the same clip and schedule, the weight decay decoupled (each
+parameter scaled by ``1 - lr * weight_decay`` before the Adam step, the
+moments free of it), ``capturable`` as Adam is.
+
 EMA (``ema_decay > 0``): ``TrainState.ema_model`` is a copy of the model
 whose parameters and BN running stats hold the exponential moving average
 of the trained model's (the JAX state's ``ema_params`` and
@@ -110,8 +115,12 @@ def _capturable(params: List[torch.Tensor]) -> bool:
     return bool(params) and params[0].is_cuda
 
 
+OPTIMIZERS = {"adam": torch.optim.Adam, "adamw": torch.optim.AdamW}
+
+
 class Optimizer:
-    """The optax chain above over ``params``. ``step(count)`` sets the
+    """The optax chain above over ``params`` (``kind`` "adam"; "adamw"
+    decouples the weight decay). ``step(count)`` sets the
     learning rate ``schedule(count)`` (``set_lr``), then clips the gradients
     and takes one Adam step (``update``); it returns the gradients' global
     norm before clipping. ``lr`` is the learning rate Adam reads: a float,
@@ -120,7 +129,9 @@ class Optimizer:
 
     def __init__(self, params: Iterable[nn.Parameter], lr: float,
                  weight_decay: float, max_grad_norm: float,
-                 schedule: Schedule):
+                 schedule: Schedule, kind: str = "adam"):
+        if kind not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {kind!r} ({'|'.join(OPTIMIZERS)})")
         self.params = [p for p in params if p.requires_grad]
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule
@@ -128,7 +139,7 @@ class Optimizer:
         self.last_lr = float(lr)
         self.lr = (torch.tensor(self.last_lr, device=self.params[0].device)
                    if self.capturable else self.last_lr)
-        self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999),
+        self.adam = OPTIMIZERS[kind](self.params, lr=self.lr, betas=(0.9, 0.999),
                                      eps=1e-8, weight_decay=weight_decay,
                                      capturable=self.capturable)
         self._bind()
@@ -192,10 +203,10 @@ class Optimizer:
 def make_optimizer(params: Iterable[nn.Parameter], lr: float = 1e-3,
                    weight_decay: float = 1e-7, max_grad_norm: float = 5.0,
                    lr_schedule: str = "constant", warmup_steps: int = 0,
-                   decay_steps: int = 0) -> Optimizer:
+                   decay_steps: int = 0, optimizer: str = "adam") -> Optimizer:
     return Optimizer(params, lr, weight_decay, max_grad_norm,
                      make_lr_schedule(lr, lr_schedule, warmup_steps,
-                                      decay_steps))
+                                      decay_steps), optimizer)
 
 
 @dataclasses.dataclass
@@ -255,15 +266,16 @@ def create_train_state(model: nn.Module, lr: float = 1e-3,
                        weight_decay: float = 1e-7, max_grad_norm: float = 5.0,
                        lr_schedule: str = "constant", warmup_steps: int = 0,
                        decay_steps: int = 0,
-                       ema_decay: float = 0.0) -> TrainState:
+                       ema_decay: float = 0.0, optimizer: str = "adam") -> TrainState:
     """``ema_decay > 0`` seeds the EMA with a copy of the model (same
-    device, no gradients): its parameters and BN running stats."""
+    device, no gradients): its parameters and BN running stats.
+    ``optimizer``: "adam" or "adamw" (``Optimizer``)."""
     ema_model = None
     if ema_decay > 0:
         ema_model = copy.deepcopy(model).requires_grad_(False)
     return TrainState(model, make_optimizer(
         model.parameters(), lr, weight_decay, max_grad_norm, lr_schedule,
-        warmup_steps, decay_steps), ema_model=ema_model)
+        warmup_steps, decay_steps, optimizer), ema_model=ema_model)
 
 
 def restore_train_state(state: TrainState, ckpt: dict) -> None:

@@ -3,9 +3,11 @@
 
 One train step is the reference hot loop: geometry -> CamEncode -> lift ->
 splat -> BevEncode -> weighted BCE -> backward -> clip -> Adam, on the
-model's device. Metrics come back as device scalars and are synced only
-where the caller reads them. Every factory takes ``device`` ("cuda" unless
-the caller asks for the CPU; no GPU raises) and moves each batch there.
+model's device; a model may name another loss (``BEVFusionSeg``: the
+sigmoid focal loss), and the state another optimizer (AdamW). Metrics come
+back as device scalars and are synced only where the caller reads them.
+Every factory takes ``device`` ("cuda" unless the caller asks for the CPU;
+no GPU raises) and moves each batch there.
 
 On one card the train step runs as one CUDA graph (``_StepGraph``): its
 first call runs the step eagerly on a stream of its own and captures the
@@ -42,16 +44,19 @@ import gc
 
 import torch
 
-from lss_carla_torch.ops import mbconv_cuda, splat_cuda
+from lss_carla_torch.ops import mbconv_cuda, splat_cuda, window_attention
 from lss_carla_torch.training.loss import (bce_with_logits,
                                            get_batch_iou_counts,
-                                           masked_eval_metrics)
+                                           masked_eval_metrics,
+                                           sigmoid_focal_loss)
 from lss_carla_torch.training.state import ema_decay_at, ema_update
 from lss_carla_torch.utils.backend import resolve_device
 from lss_carla_torch.utils.trace import span
 
 # the kernel wrappers whose calls a capture records, by kernel
 _COUNTED = {"splat": splat_cuda, "dw_conv_stats": mbconv_cuda}
+# the train step's losses, by the name a model's ``loss`` gives
+LOSSES = ("bce", "sigmoid_focal")
 _HOOKS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
           "_backward_pre_hooks")
 
@@ -97,9 +102,18 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
     (``training/state.py::ema_update``); the state must have been made with
     ``create_train_state(..., ema_decay=...)``. On one card the step is a
     CUDA graph where it can be (the module note); ``train_step.graph`` is
-    its ``_StepGraph`` (None where the step is always eager)."""
+    its ``_StepGraph`` (None where the step is always eager).
+
+    The loss is the one the model's ``loss`` names, "bce" where it names
+    none: "bce" is the weighted BCE at ``pos_weight`` (``SimpleLoss``'s),
+    "sigmoid_focal" BEVFusion's (``training/loss.py``). ``train_step.loss``
+    is the one taken."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    loss_name = getattr(model, "loss", "bce")
+    if loss_name not in LOSSES:
+        raise ValueError(f"unknown loss {loss_name!r} ({'|'.join(LOSSES)})")
+    focal = loss_name == "sigmoid_focal"
     dev = resolve_device(device)
     graphable = dev.type == "cuda" and forward is None and reduce is None
     forward = forward or model
@@ -110,7 +124,10 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
         with span("lss.step.forward"):
             logits = forward(*micro[:6])
         binimgs = micro[6]
-        loss = bce_with_logits(logits, binimgs, weight)
+        if focal:
+            loss = sigmoid_focal_loss(logits, binimgs)
+        else:
+            loss = bce_with_logits(logits, binimgs, weight)
         with span("lss.step.backward"):
             loss.backward()
         intersect, union = get_batch_iou_counts(logits.detach(), binimgs)
@@ -167,6 +184,7 @@ def make_train_step(model, pos_weight=2.13, accum_steps: int = 1,
             return step(state, batch)
 
     train_step.graph = graph
+    train_step.loss = loss_name
     return train_step
 
 
@@ -233,7 +251,10 @@ class _StepGraph:
     clipped, as after an eager step. ``held`` is what the capture's calls
     of the splat and depthwise wrappers recorded ({kernel: {dtype:
     kernels}}, from their ``captured_by_dtype``); each replay adds it to
-    ``replayed``. ``captures`` and ``replays`` count this object's."""
+    ``replayed``; ``windows`` is what its attention calls recorded
+    ({kind: windows}, ``ops/window_attention.py``), which each replay adds
+    to that module's ``replayed``. ``captures`` and ``replays`` count this
+    object's."""
 
     def __init__(self, model, step, captured, ema_decay: float, dev):
         self.model, self.step, self.captured = model, step, captured
@@ -245,7 +266,7 @@ class _StepGraph:
     def _drop(self) -> None:
         """Let go of the graph and every tensor of its pool."""
         self.graph = self.inputs = self.decay = self.out = None
-        self.grads = self.held = self.sig = None
+        self.grads = self.held = self.windows = self.sig = None
         self.bound = []
 
     def engages(self) -> bool:
@@ -277,6 +298,7 @@ class _StepGraph:
                 inputs = tuple(torch.empty_like(t, device=self.dev) for t in batch)
                 decay = torch.zeros((), dtype=torch.float32, device=self.dev)
                 before = _captured()
+                windows = dict(window_attention.captured)
                 graph = torch.cuda.CUDAGraph()
                 # no cyclic collection inside the capture: freeing another
                 # graph there (its pool's memory) would end this capture
@@ -291,12 +313,14 @@ class _StepGraph:
                         gc.enable()
                 held = {name: {k: v - before[name][k] for k, v in by.items()}
                         for name, by in _captured().items()}
+                windows = {k: v - windows[k]
+                           for k, v in window_attention.captured.items()}
             caller.wait_stream(self.stream)
             self.grads = [p.grad for p in state.optimizer.params]
             for p, g in zip(state.optimizer.params, warm):
                 p.grad = g
             self.graph, self.inputs, self.decay, self.out = graph, inputs, decay, out
-            self.held, self.sig = held, sig
+            self.held, self.windows, self.sig = held, windows, sig
             self.bound = _bound(self.model, state)
             self.captures += 1
             return metrics
@@ -316,6 +340,7 @@ class _StepGraph:
                 if p.grad is not g:
                     p.grad = g
             _count_replay(self.held)
+            window_attention.add_replayed(self.windows)
             self.replays += 1
             return {k: v.clone() for k, v in self.out.items()}
 

@@ -278,7 +278,6 @@ from lss_carla_torch.server import serve
 from lss_carla_torch.serving import INPUT_NAMES, export_predict, load_predict
 from lss_carla_torch.serving import _main as export_cli
 from lss_carla_torch.training import loop
-from lss_carla_torch.training import step as step_graph
 from lss_carla_torch.training.bn_recal import recalibrate_bn
 from lss_carla_torch.training.loop import train
 from lss_carla_torch.training.loss import bce_with_logits
@@ -290,6 +289,7 @@ from lss_carla_torch.utils.convert import (imagenet_trunk_state_dict,
                                            reference_state_dict,
                                            synthetic_imagenet_state_dict,
                                            trunk_state_dict_from_checkpoint)
+from lss_carla_torch.utils import graph as graph_counts
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
@@ -307,17 +307,17 @@ CPU_TOL = 1e-3             # x max(1, max |logit|), absolute
 def reset_launches() -> None:
     splat_cuda.reset_launches()
     mbconv_cuda.reset_launches()
-    step_graph.reset_replayed()
+    graph_counts.reset_replayed()
 
 
 def issued_by_dtype(kernel: str) -> dict:
     """{dtype: ``kernel``'s ("splat" or "dw_conv_stats") kernels issued on
     the card since ``reset_launches``}: what its wrapper launched and what
-    the train step's graph replays launched (each what its capture
-    recorded, ``training/step.py::replayed``; the card tests hold those
-    to the profiler's device activities)."""
+    CUDA graph replays (the train step's, a served artifact's) launched
+    (each what its capture recorded, ``utils/graph.py::replayed``; the
+    card tests hold those to the profiler's device activities)."""
     wrapper = {"splat": splat_cuda, "dw_conv_stats": mbconv_cuda}[kernel]
-    return {k: v + step_graph.replayed[kernel][k]
+    return {k: v + graph_counts.replayed[kernel][k]
             for k, v in wrapper.launches_by_dtype.items()}
 
 
@@ -326,7 +326,7 @@ def issued(kernel: str) -> int:
 
 
 def replayed(kernel: str) -> int:
-    return sum(step_graph.replayed[kernel].values())
+    return sum(graph_counts.replayed[kernel].values())
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -678,7 +678,7 @@ def phase_serving(tmp, model, rng, device="cuda"):
     multi = inputs(rng, 3, True, fd)
     responses = {}
 
-    splat_cuda.reset_launches()  # the main path starts here
+    reset_launches()  # the main path starts here
     with Running(serve(path1, port=0, warmup_args=single[0], device=device)) as base:
         assert get(base, "/healthz")[0] == 200
         responses["single"] = [post(base, a) for a in single]
@@ -705,7 +705,7 @@ def phase_serving(tmp, model, rng, device="cuda"):
         assert not errors and len(results) == 8, errors
         responses["multi"] = post(base, multi)
         stats8 = json.loads(get(base, "/stats")[1])
-    launches = splat_cuda.launches  # the main path ends here
+    launches = issued("splat")  # the main path ends here
 
     assert stats1["requests"] == 3, stats1
     assert stats8["requests"] == 9 and stats8["batches"] < 9, stats8
@@ -1642,7 +1642,7 @@ def phase_resnet(tmp, root, rng, seed, card):
     reset_launches()  # the ResNet serving path starts here
     with Running(serve(path8, port=0, warmup_args=many, device="cuda")) as base:
         got = post(base, many)
-    serve_launches, dw = splat_cuda.launches, mbconv_cuda.launches  # ends
+    serve_launches, dw = issued("splat"), issued("dw_conv_stats")  # ends
     assert serve_launches > 0 and dw == 0, (serve_launches, dw)
     want = load_predict(path8, device="cuda")(*many).cpu().numpy()
     err8, scale8 = assert_close("resnet18 served", got, want, SERVE_TOL)
@@ -2050,11 +2050,11 @@ def phase_int8(tmp, rng, seed, b0_run):
     path8 = f"{tmp}/lss_bsz8_u8_int8.pt"
     export_predict(model, path8, bsz=8, uint8_images=True, quantize=True)
     many = inputs(rng, 8, True)
-    splat_cuda.reset_launches()  # the main path starts here
+    reset_launches()  # the main path starts here
     with Running(serve(path8, port=0, warmup_args=many, device="cuda")) as base:
         assert get(base, "/healthz")[0] == 200
         served = post(base, many)
-    launches = splat_cuda.launches  # the main path ends here
+    launches = issued("splat")  # the main path ends here
     assert launches > 0, "int8 serving never launched the splat kernel"
     qcard = copy.deepcopy(qmodel).cuda()
     err, scale = assert_close("int8 served", served, _logits(qcard, many).numpy(),
@@ -3076,15 +3076,18 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 from lss_carla_torch.ops import splat_cuda
 from lss_carla_torch.serving import load_predict
+from lss_carla_torch.utils import graph
 inputs, pairs = sys.argv[1], sys.argv[2:]
 args = tuple(np.load(inputs)[f"a{i}"] for i in range(6))
 info = {}
 for path, out in zip(pairs[::2], pairs[1::2]):
     predict = load_predict(path, device="cuda")
-    predict(*args)  # warm-up
+    predict(*args)  # warm-up: the graph's capture
     splat_cuda.reset_launches()
+    graph.reset_replayed()
     np.save(out, predict(*args).cpu().numpy())
-    info[path] = {"splat": splat_cuda.launches, "moved_from": predict.moved_from}
+    info[path] = {"splat": splat_cuda.launches + sum(graph.replayed["splat"].values()),
+                  "replays": predict.replays, "moved_from": predict.moved_from}
 models = [m for m in sys.modules if m.startswith("lss_carla_torch.models")]
 assert not models, models
 print(json.dumps(info))
@@ -3119,7 +3122,7 @@ def phase_export(tmp: str, seed: int) -> dict:
     info = json.loads(proc.stdout.strip().splitlines()[-1])
     notes, launches = [], {}
     for name, path in paths.items():
-        assert info[path] == {"splat": 1, "moved_from": None}, info
+        assert info[path] == {"splat": 1, "replays": 1, "moved_from": None}, info
         launches[name] = info[path]["splat"]
         err, scale = assert_close(f"exported {name} vs live",
                                   np.load(f"{tmp}/export-{name}.npy"),
@@ -3127,11 +3130,11 @@ def phase_export(tmp: str, seed: int) -> dict:
         notes.append(f"{name}: max |diff| {err:.3e} (limit {SERVE_TOL} x "
                      f"{scale:.3f}), export {exported[name][0]:.1f} s, "
                      f"{exported[name][1]:.1f} MB")
-    splat_cuda.reset_launches()
+    reset_launches()
     with Running(serve(paths["f32"], port=0, warmup_args=args,
                        device="cuda")) as base:
         served = post(base, args)
-    launches["http"] = splat_cuda.launches
+    launches["http"] = issued("splat")
     err, _ = assert_close("exported f32 over HTTP", served,
                           np.load(f"{tmp}/export-f32.npy"), SERVE_TOL)
     print(f"export: B0 (randomised BN, f32, TF32 off, bsz 2, uint8 "
@@ -3349,8 +3352,8 @@ def phase_bevfusion(seed: int, gen) -> tuple:
     assert all(math.isfinite(x) for x in losses), losses
     assert window_attention.calls == {"plain": SWIN_BLOCKS // 2, "shifted": SWIN_BLOCKS // 2}, \
         window_attention.calls
-    assert graph.windows == per_forward and window_attention.computed() == {
-        k: BEV_STEPS * v for k, v in per_forward.items()}, (graph.windows, per_forward)
+    assert graph.graph.windows == per_forward and window_attention.computed() == {
+        k: BEV_STEPS * v for k, v in per_forward.items()}, (graph.graph.windows, per_forward)
     print(f"BEVFusion step (Swin-T, 6 x 256 x 704, D 118, 256 x 256, bf16, bsz "
           f"{BEV_BSZ}, AdamW): {BEV_STEPS} steps, {graph.captures} capture and "
           f"{graph.replays} replays, losses {[round(x, 4) for x in losses]}; "

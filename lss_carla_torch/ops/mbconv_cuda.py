@@ -16,8 +16,8 @@ the kernel does not take: a CPU tensor goes to the plain version
 process, and ``launches_by_dtype`` the same calls by x's dtype;
 ``captured_by_dtype`` counts the calls made while a CUDA graph was being
 captured on the current stream, which recorded the kernel into the graph
-and launched nothing (the graph's replays launch it: the train step
-counts those, ``training/step.py::replayed``). ``chip_smoke.py`` sets
+and launched nothing (the graph's replays launch it and count it in
+``utils/graph.py::replayed``). ``chip_smoke.py`` sets
 them to 0 (``reset_launches``) before it drives a path and reads them
 after.
 """
@@ -181,18 +181,22 @@ def plan_tiles(N: int, C: int, H: int, W: int, k: int, s: int,
 # (2, C, tiles) f32 are written before they are read; tickets (C,) int32
 # start at 0 and every call leaves them at 0, so they are zeroed only
 # when the buffer is made. Calls on one stream run in order, so they may
-# share one buffer.
+# share one buffer. A call under a stream capture takes scratch of its own
+# from the graph's pool, which its replays use and no other call can
+# grow, free or share.
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _scratch(device: torch.device, stream: int, C: int, tiles: int):
     key = (device.index, stream)
-    partial, tickets = _SCRATCH.get(key, (None, None))
+    capturing = torch.cuda.is_current_stream_capturing()
+    partial, tickets = (None, None) if capturing else _SCRATCH.get(key, (None, None))
     if partial is None or partial.numel() < 2 * C * tiles:
         partial = torch.empty(2 * C * tiles, dtype=torch.float32, device=device)
     if tickets is None or tickets.numel() < C:
         tickets = torch.zeros(C, dtype=torch.int32, device=device)
-    _SCRATCH[key] = (partial, tickets)
+    if not capturing:
+        _SCRATCH[key] = (partial, tickets)
     return partial, tickets
 
 

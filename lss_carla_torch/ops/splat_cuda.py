@@ -18,7 +18,8 @@ H100 (PERF.md, PR 10):
   its host-side plan (segments of ``SEG_SLOTS`` slots, tiles of 256-point
   rounds, chunks of ``CHUNK_POINTS`` points, the scratch); the wrapper
   allocates that scratch with the torch caching allocator, once per
-  (device, stream), grown as needed.
+  (device, stream), grown as needed, and once per call under a CUDA
+  graph's capture, from the graph's pool.
 * f32: the tile kernel (``tiles_forward``): run sums added with float4
   atomics into the output, which the wrapper zero-fills (two device
   activities a call). The atomic sums arrive in run-to-run order, so f32
@@ -32,8 +33,8 @@ the plain version in the caller, never here.
 a call), and ``launches_by_dtype`` the same by the features' dtype;
 ``captured_by_dtype`` counts the calls made while a CUDA graph was being
 captured on the current stream, which recorded the kernel into the graph
-and launched nothing (the graph's replays launch it: the train step
-counts those, ``training/step.py::replayed``). ``chip_smoke.py`` sets
+and launched nothing (the graph's replays launch it and count it in
+``utils/graph.py::replayed``). ``chip_smoke.py`` sets
 them to 0 (``reset_launches``) before it drives a path and reads them
 after.
 """
@@ -116,18 +117,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # per (device, stream): the work scratch (written before it is read) and
 # the table (zeros when made; every call leaves it at 0). Calls on one
-# stream run in order, so they may share them.
+# stream run in order, so they may share them. A call under a stream
+# capture takes scratch of its own from the graph's pool, which its
+# replays use and no other call can grow, free or share.
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _scratch(device: torch.device, stream: int, plan: SplatPlan):
     key = (device.index, stream)
-    work, table = _SCRATCH.get(key, (None, None))
+    capturing = torch.cuda.is_current_stream_capturing()
+    work, table = (None, None) if capturing else _SCRATCH.get(key, (None, None))
     if work is None or work.numel() < plan.work_ints:
         work = torch.empty(plan.work_ints, dtype=torch.int32, device=device)
     if table is None or table.numel() < plan.table_ints:
         table = torch.zeros(plan.table_ints, dtype=torch.int32, device=device)
-    _SCRATCH[key] = (work, table)
+    if not capturing:
+        _SCRATCH[key] = (work, table)
     return work, table
 
 

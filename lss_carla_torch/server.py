@@ -12,7 +12,9 @@ Protocol (stdlib-only on both sides):
   mismatch (the expected signature is in the error).
 * ``GET /healthz``: 200 once the artifact is loaded and warmed; 503 before.
   An un-warmed server's first successful request pins the signature.
-* ``GET /stats``: JSON request count + latency percentiles (ms).
+* ``GET /stats``: JSON request count + latency percentiles (ms), and the
+  artifact's graph counters (``serving.Predictor``: ``captures``,
+  ``replays``, ``eager_calls``, ``fallbacks``, ``graph_error``).
 
 Two serving modes:
 
@@ -29,7 +31,8 @@ handler thread emits ``lss.serve.read`` (the body off the socket, which
 waits for the client's send), ``lss.serve.parse`` (``np.load`` and
 validation) and ``lss.serve.reply`` (the 200's npz and send) a request; the
 batcher emits ``lss.serve.fill``, ``lss.serve.assemble`` and
-``lss.serve.predict`` a batch.
+``lss.serve.predict`` a batch, and inside the predict the artifact emits
+``lss.serve.replay`` or ``lss.serve.eager``.
 
     python -m lss_carla_torch.server --artifact /models/lss.pt --port 8471
 """
@@ -104,9 +107,13 @@ class PredictService:
         lat = sorted(self.latencies_ms)
         pct = (lambda p: round(lat[min(int(p * len(lat)), len(lat) - 1)], 3)
                if lat else None)
+        p = self._predict
         return {"requests": self.requests,
                 "latency_ms": {"p50": pct(0.50), "p90": pct(0.90),
-                               "p99": pct(0.99)}}
+                               "p99": pct(0.99)},
+                "captures": p.captures, "replays": p.replays,
+                "eager_calls": p.eager_calls, "fallbacks": p.fallbacks,
+                "graph_error": p.graph_error}
 
 
 class _Pending:

@@ -22,6 +22,9 @@ on another device is moved there with
 ``torch.export.passes.move_to_device_pass``; ``Predictor.moved_from``
 records the device it was exported on, ``None`` when it was not moved.
 
+On a CUDA device a ``Predictor`` runs the program as one CUDA graph: its
+first call captures it, every later call replays it (``Predictor``).
+
     from lss_carla_torch.serving import export_predict, load_predict
     export_predict(model, "/models/lss.pt2", bsz=1)
     predict = load_predict("/models/lss.pt2")       # device="cuda"
@@ -31,6 +34,7 @@ records the device it was exported on, ``None`` when it was not moved.
 from __future__ import annotations
 
 import json
+import threading
 import zipfile
 from typing import Optional
 
@@ -39,6 +43,8 @@ import torch
 
 from lss_carla_torch.ops import library  # noqa: F401  (registers lss::*)
 from lss_carla_torch.utils.backend import resolve_device
+from lss_carla_torch.utils.graph import capture
+from lss_carla_torch.utils.trace import span
 
 FORMAT = "lss_carla_torch.predict/2"
 META = "lss_predict.json"  # the archive's extra file
@@ -108,7 +114,31 @@ class Predictor:
     """A loaded artifact: checks inputs against the signature, runs the
     program on its device, returns logits (B, outC, X, Y) as a tensor
     there. ``meta`` is the artifact's settings; ``moved_from`` the device
-    it was exported on where that is not ``device``, else None."""
+    it was exported on where that is not ``device``, else None.
+
+    On a CUDA device the program runs as one CUDA graph, since every call
+    has the signature's static shapes. The first call copies its inputs
+    into static device buffers, runs the program eagerly from them on a
+    stream of its own (which makes cuDNN's and cuBLAS's workspaces before
+    a capture needs them), captures one call of it from the same buffers
+    (``utils/graph.py``), and returns the eager answer. Every later call
+    copies its inputs into the buffers, replays the graph on the caller's
+    stream and returns a clone of the graph's output, so an answer that a
+    caller keeps is never overwritten by a later replay. The buffers serve
+    one call at a time: callers on other threads wait their turn. Where
+    the capture fails, the object stays eager for good, and
+    ``graph_error`` says why. On the CPU every call runs the program
+    eagerly.
+
+    ``captures`` (0 or 1), ``fallbacks`` (0 or 1), ``replays`` and
+    ``eager_calls`` count this object's calls (the capturing call is an
+    eager one); each call that passes the signature check runs inside one
+    span of ``utils/trace.py``, ``lss.serve.replay`` or
+    ``lss.serve.eager``."""
+
+    # eager calls on the capture's stream before it: the first makes the
+    # workspaces, the second runs on what the first made
+    WARMUP_CALLS = 2
 
     def __init__(self, program, signature: dict, device: torch.device,
                  meta: Optional[dict] = None,
@@ -116,8 +146,22 @@ class Predictor:
         self.program, self.signature, self.device = program, signature, device
         self.meta, self.moved_from = meta or {}, moved_from
         self._expected = input_shapes(signature)
+        self.replays = self.eager_calls = 0
+        self.graph_error: Optional[str] = None
+        self._graph = self._inputs = None
+        self._lock = threading.Lock()
 
-    def __call__(self, *args):
+    @property
+    def captures(self) -> int:
+        return int(self._graph is not None)
+
+    @property
+    def fallbacks(self) -> int:
+        return int(self.graph_error is not None)
+
+    def _check(self, args) -> list:
+        """The inputs as tensors where they are; ValueError where the
+        count or any input is off the signature, before any is copied."""
         if len(args) != len(self._expected):
             raise ValueError(f"expected {len(self._expected)} inputs, "
                              f"got {len(args)}")
@@ -128,9 +172,61 @@ class Predictor:
                 raise ValueError(
                     f"{name}: got {tuple(t.shape)} {t.dtype}, the artifact "
                     f"takes {shape} {dtype}")
-            tensors.append(t.to(self.device, non_blocking=True))
+            tensors.append(t)
+        return tensors
+
+    def __call__(self, *args):
+        tensors = self._check(args)
+        if self.device.type != "cuda":
+            with span("lss.serve.eager"):
+                self.eager_calls += 1
+                return self._run(tensors)
+        with self._lock:
+            if self._graph is not None:
+                with span("lss.serve.replay"):
+                    return self._replay(tensors)
+            with span("lss.serve.eager"):
+                self.eager_calls += 1
+                if self.graph_error is None:
+                    return self._capture(tensors)
+                return self._run(tensors)
+
+    def _run(self, tensors):
+        """The program, eagerly, on its device."""
+        tensors = [t.to(self.device, non_blocking=True) for t in tensors]
         with torch.inference_mode():
             return self.program(*tensors)
+
+    def _capture(self, tensors):
+        """The first CUDA call: the eager program on a stream of its own
+        from the static buffers, then one call captured from them. Returns
+        the eager answer; a capture that fails leaves the object eager."""
+        caller = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(caller)
+        with torch.cuda.stream(stream):
+            inputs = [torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                      for t in tensors]
+            for buf, t in zip(inputs, tensors):
+                buf.copy_(t, non_blocking=True)
+            for _ in range(self.WARMUP_CALLS):
+                answer = self._run(inputs)
+            try:
+                self._graph = capture(lambda: self._run(inputs), stream)
+                self._inputs = inputs
+            except Exception as e:   # whatever ends the capture: stay eager
+                self.graph_error = f"{type(e).__name__}: {e}"
+        caller.wait_stream(stream)
+        answer.record_stream(caller)
+        return answer
+
+    def _replay(self, tensors):
+        for buf, t in zip(self._inputs, tensors):
+            buf.copy_(t, non_blocking=True)
+        self._graph.replay()
+        self.replays += 1
+        with torch.inference_mode():
+            return self._graph.out.clone()
 
 
 def read_meta(path: str) -> dict:

@@ -40,39 +40,21 @@ of ``utils/trace.py``, they record only while a profiler records.
 
 from __future__ import annotations
 
-import gc
-
 import torch
 
-from lss_carla_torch.ops import mbconv_cuda, splat_cuda, window_attention
 from lss_carla_torch.training.loss import (bce_with_logits,
                                            get_batch_iou_counts,
                                            masked_eval_metrics,
                                            sigmoid_focal_loss)
 from lss_carla_torch.training.state import ema_decay_at, ema_update
 from lss_carla_torch.utils.backend import resolve_device
+from lss_carla_torch.utils.graph import capture
 from lss_carla_torch.utils.trace import span
 
-# the kernel wrappers whose calls a capture records, by kernel
-_COUNTED = {"splat": splat_cuda, "dw_conv_stats": mbconv_cuda}
 # the train step's losses, by the name a model's ``loss`` gives
 LOSSES = ("bce", "sigmoid_focal")
 _HOOKS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
           "_backward_pre_hooks")
-
-# launches of the hand-written kernels that replays of the step's graphs
-# issued in this process, by kernel and input dtype. A replay calls no
-# wrapper, so the wrappers' own counters count only what they launched;
-# each replay adds here what its graph recorded (``_StepGraph.held``).
-replayed = {name: {"float32": 0, "bfloat16": 0} for name in _COUNTED}
-
-
-def reset_replayed() -> None:
-    """Set every ``replayed`` count to 0."""
-    for counts in replayed.values():
-        for key in counts:
-            counts[key] = 0
-
 
 def to_device(batch, device: torch.device):
     """Each array of ``batch`` as a tensor on ``device`` (no copy where it
@@ -216,18 +198,6 @@ def _bound(model, state) -> list:
     return out
 
 
-def _count_replay(held: dict) -> None:
-    """Add a replay's launches, what its capture recorded, to ``replayed``."""
-    for name, by in held.items():
-        for k, v in by.items():
-            replayed[name][k] += v
-
-
-def _captured() -> dict:
-    """{kernel: {dtype: calls its wrapper recorded into a graph}}."""
-    return {name: dict(m.captured_by_dtype) for name, m in _COUNTED.items()}
-
-
 class _StepGraph:
     """The single-device train step as one CUDA graph.
 
@@ -236,9 +206,9 @@ class _StepGraph:
     up everything a capture must find made (Adam's state, cuBLAS's
     workspace, the kernels' per-stream scratch), then captures
     ``captured`` on that stream into a graph with its own memory pool and
-    returns the eager step's metrics. The kernels' scratch stays keyed to
-    that stream, so no other caller grows or frees what the graph holds.
-    A later call with a batch of the captured shapes and dtypes copies it
+    returns the eager step's metrics. The capture's kernels take scratch
+    of their own from the graph's pool (``ops/splat_cuda.py``), so no
+    other caller grows or frees what the graph holds. A later call with a batch of the captured shapes and dtypes copies it
     into the input buffers, writes ``lr`` (``Optimizer.set_lr``) and the
     EMA decay, replays the graph on the caller's stream and returns clones
     of the graph's outputs, each call's own values. Dropout draws from
@@ -248,13 +218,12 @@ class _StepGraph:
     The graph holds the addresses of everything in ``_bound``: a call whose
     ``_bound`` differs (a tensor rebound, another state) captures again.
     After a replay the parameters' ``grad`` are the graph's gradients,
-    clipped, as after an eager step. ``held`` is what the capture's calls
-    of the splat and depthwise wrappers recorded ({kernel: {dtype:
-    kernels}}, from their ``captured_by_dtype``); each replay adds it to
-    ``replayed``; ``windows`` is what its attention calls recorded
-    ({kind: windows}, ``ops/window_attention.py``), which each replay adds
-    to that module's ``replayed``. ``captures`` and ``replays`` count this
-    object's."""
+    clipped, as after an eager step. ``graph`` is the ``utils/graph.py``
+    capture: its ``held`` is what the capture's calls of the splat and
+    depthwise wrappers recorded ({kernel: {dtype: kernels}}) and its
+    ``windows`` what its attention calls recorded ({kind: windows}), which
+    each replay adds to those modules' ``replayed``. ``captures`` and
+    ``replays`` count this object's."""
 
     def __init__(self, model, step, captured, ema_decay: float, dev):
         self.model, self.step, self.captured = model, step, captured
@@ -265,8 +234,7 @@ class _StepGraph:
 
     def _drop(self) -> None:
         """Let go of the graph and every tensor of its pool."""
-        self.graph = self.inputs = self.decay = self.out = None
-        self.grads = self.held = self.windows = self.sig = None
+        self.graph = self.inputs = self.decay = self.grads = self.sig = None
         self.bound = []
 
     def engages(self) -> bool:
@@ -297,30 +265,14 @@ class _StepGraph:
                 state.optimizer.zero_grad()      # the graph's own gradients
                 inputs = tuple(torch.empty_like(t, device=self.dev) for t in batch)
                 decay = torch.zeros((), dtype=torch.float32, device=self.dev)
-                before = _captured()
-                windows = dict(window_attention.captured)
-                graph = torch.cuda.CUDAGraph()
-                # no cyclic collection inside the capture: freeing another
-                # graph there (its pool's memory) would end this capture
-                collecting = gc.isenabled()
-                gc.disable()
-                try:
-                    with torch.cuda.graph(graph, stream=self.stream,
-                                          capture_error_mode="thread_local"):
-                        out = self.captured(state, inputs, decay)
-                finally:
-                    if collecting:
-                        gc.enable()
-                held = {name: {k: v - before[name][k] for k, v in by.items()}
-                        for name, by in _captured().items()}
-                windows = {k: v - windows[k]
-                           for k, v in window_attention.captured.items()}
+                graph = capture(lambda: self.captured(state, inputs, decay),
+                                self.stream)
             caller.wait_stream(self.stream)
             self.grads = [p.grad for p in state.optimizer.params]
             for p, g in zip(state.optimizer.params, warm):
                 p.grad = g
-            self.graph, self.inputs, self.decay, self.out = graph, inputs, decay, out
-            self.held, self.windows, self.sig = held, windows, sig
+            self.graph, self.inputs, self.decay = graph, inputs, decay
+            self.sig = sig
             self.bound = _bound(self.model, state)
             self.captures += 1
             return metrics
@@ -339,10 +291,8 @@ class _StepGraph:
             for p, g in zip(state.optimizer.params, self.grads):
                 if p.grad is not g:
                     p.grad = g
-            _count_replay(self.held)
-            window_attention.add_replayed(self.windows)
             self.replays += 1
-            return {k: v.clone() for k, v in self.out.items()}
+            return {k: v.clone() for k, v in self.graph.out.items()}
 
 
 def make_eval_step(model, pos_weight=2.13, device="cuda", forward=None,

@@ -446,7 +446,7 @@ def test_graph_step_equals_the_eager_step_at_the_cells_shapes(cuda):
     rows = G.steps_against_eager(CELL, feed, 100, (*paths, replica))
     assert (step_g.graph.captures, step_g.graph.replays) == (1, G.STEPS - 1)
     per_forward = windows_of({"image_size": [256, 704], "swin": SWIN_T}, 24)
-    assert step_g.graph.windows == per_forward
+    assert step_g.graph.graph.windows == per_forward
     assert WA.replayed == {k: (G.STEPS - 1) * v for k, v in per_forward.items()}
     G.check(rows)
 

@@ -30,6 +30,7 @@ from lss_carla_torch.training.state import (averaged_tensors, create_train_state
                                             ema_decay_at, ema_update, make_optimizer,
                                             restore_train_state)
 from lss_carla_torch.training.step import make_train_step
+from lss_carla_torch.utils import graph as Gr
 
 pytestmark = pytest.mark.gpu
 
@@ -132,7 +133,7 @@ def state_of(model, cfg):
 def issued():
     """(splat, dw_conv_stats) kernels issued on the card so far: what the
     wrappers launched and what the step's graph replays launched."""
-    return tuple(m.launches + sum(Sp.replayed[name].values())
+    return tuple(m.launches + sum(Gr.replayed[name].values())
                  for name, m in (("splat", splat_cuda), ("dw_conv_stats", mbconv_cuda)))
 
 
@@ -313,18 +314,18 @@ def test_graph_step_equals_the_eager_step(cuda, name):
     n = dict(zip(("splat", "dw_conv_stats"), per_step(cfg)))
     launched = (splat_cuda.launches, mbconv_cuda.launches)
     captured = [sum(m.captured_by_dtype.values()) for m in (splat_cuda, mbconv_cuda)]
-    replayed = [sum(Sp.replayed[k].values()) for k in n]
+    replayed = [sum(Gr.replayed[k].values()) for k in n]
     rows = steps_against_eager(cfg, feed, 100, paths)
     assert (step_g.graph.captures, step_g.graph.replays) == (1, STEPS - 1)
     assert sg.step == se.step == STEPS
-    assert {k: sum(v.values()) for k, v in step_g.graph.held.items()} == n
+    assert {k: sum(v.values()) for k, v in step_g.graph.graph.held.items()} == n
     # the graph's first step and the two eager paths' steps launched; the
     # capture recorded one step; the replays issued the rest
     assert (splat_cuda.launches - launched[0], mbconv_cuda.launches - launched[1]) == \
         tuple((2 * STEPS + 1) * v for v in n.values())
     assert [sum(m.captured_by_dtype.values()) - c
             for m, c in zip((splat_cuda, mbconv_cuda), captured)] == list(n.values())
-    assert [sum(Sp.replayed[k].values()) - r for k, r in zip(n, replayed)] == \
+    assert [sum(Gr.replayed[k].values()) - r for k, r in zip(n, replayed)] == \
         [(STEPS - 1) * v for v in n.values()]
     _, launches_g = run(step_g, sg, feed[:2], 500)
     _, launches_e = run(step_e, se, feed[:2], 500)
@@ -415,7 +416,7 @@ def test_profiler_sees_the_kernels_of_a_replay(cuda):
     """Under torch.profiler, replays show each kernel of the graph as a
     device activity of its own: the segment splat and ``dw_conv_stats``
     as often as the capture recorded them (``held``) a replay, which is
-    what a replay adds to ``training/step.py::replayed``."""
+    what a replay adds to ``utils/graph.py::replayed``."""
     from torch.profiler import ProfilerActivity, profile
     cfg = CONFIGS["b4"]
     model = build(cfg, cuda)
@@ -430,7 +431,7 @@ def test_profiler_sees_the_kernels_of_a_replay(cuda):
     assert step.graph.replays == 2
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
-    held = {k: sum(v.values()) for k, v in step.graph.held.items()}
+    held = {k: sum(v.values()) for k, v in step.graph.graph.held.items()}
     assert held == dict(zip(("splat", "dw_conv_stats"), per_step(cfg))) == \
         {"splat": 2, "dw_conv_stats": 2 * 32}
     assert sum("splat_kernel" in n for n in names) == 2 * held["splat"]

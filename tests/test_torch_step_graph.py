@@ -23,6 +23,7 @@ from lss_carla_torch.ops.image import (IMAGENET_MEAN, IMAGENET_STD, imagenet_sta
 from lss_carla_torch.training import state as St
 from lss_carla_torch.training import step as Sp
 from lss_carla_torch.training.loss import bce_with_logits
+from lss_carla_torch.utils import graph as Gr
 from lss_carla_torch.utils import trace
 
 from test_torch_lss import rig
@@ -303,15 +304,15 @@ def test_a_replay_adds_the_launches_it_holds(monkeypatch):
         monkeypatch.setattr(m, "launches", 5)
         monkeypatch.setattr(m, "launches_by_dtype", {"float32": 2, "bfloat16": 3})
         monkeypatch.setattr(m, "captured_by_dtype", {"float32": 0, "bfloat16": 0})
-    monkeypatch.setattr(Sp, "replayed", {name: {"float32": 0, "bfloat16": 0}
-                                         for name in Sp._COUNTED})
-    before = Sp._captured()
+    monkeypatch.setattr(Gr, "replayed", {name: {"float32": 0, "bfloat16": 0}
+                                         for name in Gr._COUNTED})
+    before = Gr._captured()
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
     splat_cuda._count(torch.bfloat16)
     for _ in range(32):
         mbconv_cuda._count(torch.bfloat16)
     held = {name: {k: v - before[name][k] for k, v in by.items()}
-            for name, by in Sp._captured().items()}
+            for name, by in Gr._captured().items()}
     assert held == {"splat": {"float32": 0, "bfloat16": 1},
                     "dw_conv_stats": {"float32": 0, "bfloat16": 32}}
     assert splat_cuda.launches == mbconv_cuda.launches == 5
@@ -320,12 +321,12 @@ def test_a_replay_adds_the_launches_it_holds(monkeypatch):
     assert splat_cuda.launches == 6
     assert splat_cuda.launches_by_dtype == {"float32": 3, "bfloat16": 3}
     for _ in range(3):
-        Sp._count_replay(held)
-    assert Sp.replayed == {"splat": {"float32": 0, "bfloat16": 3},
+        Gr._count_replay(held)
+    assert Gr.replayed == {"splat": {"float32": 0, "bfloat16": 3},
                            "dw_conv_stats": {"float32": 0, "bfloat16": 96}}
     assert mbconv_cuda.launches == 5 and mbconv_cuda.launches_by_dtype["bfloat16"] == 3
-    Sp.reset_replayed()
-    assert all(v == 0 for by in Sp.replayed.values() for v in by.values())
+    Gr.reset_replayed()
+    assert all(v == 0 for by in Gr.replayed.values() for v in by.values())
     splat_cuda.reset_launches()
     assert splat_cuda.launches == 0
     assert set(splat_cuda.captured_by_dtype.values()) == {0}
